@@ -6,22 +6,29 @@ from the root of a checkout, on a machine with an NVIDIA GPU (written for
 an H100) and the CUDA toolkit.  It
 
 1. prints the card (``nvidia-smi``), the nvcc and torch versions;
-2. builds both CUDA kernels from ``lisp_mcmc_torch/csrc`` (one nvcc per
-   source, started together);
-3. holds the fused posterior kernel against its plain PyTorch version at
+2. builds the three CUDA kernels from ``lisp_mcmc_torch/csrc`` (one nvcc
+   per source, started together);
+3. the roofline path: holds the chain-probe kernel against its plain
+   version for its five ops in float32 and float64 (and, where cuobjdump
+   exists, counts the FFMA/DFMA of the fma probes), measures the card's
+   ceilings in both types and checks them against the published peaks,
+   then runs ``lisp_mcmc_torch.roofline.main()`` at W = 131072;
+4. holds the fused posterior kernel against its plain PyTorch version at
    the flagship's shape (W = 131072 walkers, d = 6, N = 334 points), in
    float32 and float64, with a flat and a bounds prior, and times both;
-4. holds the whole-chunk rwm kernel against its plain version for one
+5. holds the whole-chunk rwm kernel against its plain version for one
    200-step chunk at W = 131072 from the same state and seed, and times
    both;
-5. runs the flagship journey on the default path (fused kernel per step):
+6. runs the flagship journey on the default path (fused kernel per step):
    ``walker_create`` + ``adaptive_steps(30000, temperature=10)`` with
    history, then ``most_likely_step`` and ``ess_from_history``;
-6. runs the journey again with ``posterior_impl="chunk_kernel"``
+7. runs the journey again with ``posterior_impl="chunk_kernel"``
    (``adaptive_steps(10000, collect_history=False)``);
-7. profiles two chunks of the default path (wall clock, device time by
+8. profiles two chunks of the default path (wall clock, device time by
    kernel, the device's busy share);
-8. prints the ``kernels`` summary line, the card line and, last,
+9. prints the ``kernels`` summary line (each kernel's time, launches on
+   its path, bound at the published peaks, op-mix bound at the measured
+   float32 ceilings, plain and library times), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
@@ -43,32 +50,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-FLAGSHIP = {"scale": -4.788638538682475e-5, "linewidth": 121.09571484294366,
-            "x0": 2784.6836516658504, "mix": 3.141546812249173,
-            "bg0": -1.0629009389997092e-6, "bg1": 2.8207485034278606e-10}
-START = {"scale": 1e-5, "linewidth": 7.0, "x0": 2200.0, "mix": 0.9,
-         "bg0": 1e-7, "bg1": 1e-9}
 W_FLAGSHIP = 131072
 DEVICE = "cuda"
-N_POINTS = 334
-
-# Published peaks of an H100 SXM at its 700 W limit (NVIDIA data sheet):
-# FP32 and FP64 outside the tensor cores, HBM3 bandwidth.
-PEAK_F32 = 67e12
-PEAK_F64 = 34e12
-PEAK_BYTES = 3.35e12
-# Floating-point operations per walker-point, counting a division or a
-# log as one operation (each is several instructions, so the bound stays
-# a lower bound): lorder_mixed_bg's factored form (zoo.py) is 12, the
-# normal reduction's residual, scale and square-accumulate 4.
-FLOPS_PER_POINT = {"lorder_mixed_bg": 12, "normal": 4}
-# Per walker-step of the chunk kernel beyond the posterior: Box-Muller
-# (log, sqrt, cos, 3 muls per parameter), L z (d(d+1)/2 FMAs), the MH
-# test, best tracking and moment sums (d + d(d+1)/2 FMAs).
-def _chunk_step_flops(d):
-    return 6 * d + d * (d + 1) + 2 * (d + d * (d + 1) // 2) + 8
-
-
+# float32 and float64 tolerances of the chain probe against its plain
+# version: in float32 the kernel contracts the fma op into one FFMA (one
+# rounding where the plain version has two) and CUDA's cosf/expf/logf
+# differ from torch's by an ulp; 32 applications per chain then differ by
+# at most a few 1e-6.  In float64 the same differences are ~1e-16 an op.
+PROBE_RTOL = {"float32": 1e-4, "float64": 1e-10}
+PROBE_K = 4
 OUT = {"phases": []}
 
 
@@ -107,18 +97,6 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def synthetic_flagship(seed=0):
-    """334 points of the flagship model plus sigma = 1e-7 noise."""
-    import numpy as np
-    import torch
-    from lisp_mcmc_torch.models import lorder_mixed_bg
-
-    x = np.linspace(2000.0, 3600.0, N_POINTS)
-    p = {k: torch.tensor(v, dtype=torch.float64) for k, v in FLAGSHIP.items()}
-    y = lorder_mixed_bg(torch.tensor(x), p).numpy()
-    return x, y + 1e-7 * np.random.default_rng(seed).standard_normal(N_POINTS)
-
-
 def phase_card():
     import torch
 
@@ -145,31 +123,139 @@ def phase_build():
     logs = build_all()
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln][:8]
+                    if "registers" in ln or "spill" in ln][:24]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": secs, "built": sorted(logs),
           "ptxas": ptxas})
 
 
+def _sass_fma_counts():
+    """FFMA / DFMA instructions in the float32 / float64 fma probes, read
+    from the built library with cuobjdump; None where there is none."""
+    import re
+    import shutil
+    from lisp_mcmc_torch.device import _target
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_target("microbench"))], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        for tag, ins in (("IfLi0E", "FFMA"), ("IdLi0E", "DFMA")):
+            if "chain_kernel" + tag in block.split()[0]:
+                counts[ins] = len(re.findall(rf"\b{ins}\b", block))
+    return counts
+
+
+def phase_roofline(counters):
+    """The third kernel and the path that runs it.
+
+    The chain probe against its plain version for every op in both types;
+    the ceilings in float32 and float64, checked against the published
+    peaks; then ``roofline.main()`` at the flagship's W with every launch
+    count set to 0 just before it.  Returns the float32 ceilings and the
+    probe's row of the kernels line.
+    """
+    import torch
+    from lisp_mcmc_torch import roofline
+    from lisp_mcmc_torch.ops.microbench import (CHAINS, OPS, UNROLL, chain_probe,
+                                                chain_probe_plain)
+
+    n = roofline.full_occupancy(0)
+    checks = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        x = torch.linspace(0.5, 2.0, n, dtype=dtype, device=DEVICE)
+        for op in OPS:
+            got = chain_probe(x, op, PROBE_K)
+            ref = chain_probe_plain(x, op, PROBE_K)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            rel = float((err / ref.abs().clamp_min(1e-30)).max())
+            check(bool(torch.isfinite(got).all()), f"chain probe {op} {name}: non-finite")
+            check(rel <= PROBE_RTOL[name], f"chain probe {op} {name}: max relative "
+                  f"error {rel} > {PROBE_RTOL[name]}")
+            checks[f"{op}_{name}"] = {"max_rel_err": rel, "max_abs_err": float(err.max())}
+    sass = _sass_fma_counts()
+    if sass is not None:
+        check(sass == {"FFMA": UNROLL * CHAINS, "DFMA": UNROLL * CHAINS},
+              f"fma probes: {sass} FFMA/DFMA, want {UNROLL * CHAINS} each")
+    emit({"phase": "roofline_probe_check", "n": n, "K": PROBE_K,
+          "rtol": PROBE_RTOL, "results": checks, "sass_fma": sass})
+
+    ceilings = {}
+    for dtype in (torch.float32, torch.float64):
+        ceilings[str(dtype).split(".")[-1]] = roofline.microbench_ceilings(dtype, DEVICE)
+    card = roofline._card()
+    c32, c64 = ceilings["float32"], ceilings["float64"]
+    emit({"phase": "ceilings", "card": card, **ceilings})
+    peak32 = c32["fma_flops_per_sec"] / roofline.PEAK_F32
+    check(0.5 <= peak32 <= 1.03, f"f32 FMA ceiling at {peak32:.3f} of the peak")
+    peak64 = c64["fma_flops_per_sec"] / roofline.PEAK_F64
+    check(peak64 <= 1.03, f"f64 FMA ceiling at {peak64:.3f} of the peak")
+    for name, c in ceilings.items():
+        hbm = c["hbm_bytes_per_sec"] / roofline.PEAK_BYTES
+        check(0.5 <= hbm <= 1.03, f"{name} HBM ceiling at {hbm:.3f} of the peak")
+    check(c32["div_per_sec"] < c32["fma_flops_per_sec"] / 2,
+          "f32 division rate at or above the FMA instruction rate")
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    report = roofline.main(walkers=W_FLAGSHIP, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches["chain_probe"] > 0, "roofline: the chain probe was never launched")
+    check(report["device"] == torch.cuda.get_device_name(0), "roofline: wrong device")
+    for k, v in report["kernels"].items():
+        check(v["ms"] > 0 and 0 < v["opmix_share"], f"roofline: {k} row {v}")
+    emit({"phase": "roofline", "report": report, "launches": launches})
+
+    probe = c32["probes"]["fma"]
+    x = torch.full((c32["n"],), 1.0001, dtype=torch.float32, device=DEVICE)
+    plain_ms = cuda_time_ms(lambda: chain_probe_plain(x, "fma", probe["k2"]), 1)
+    flops = probe["k2"] * UNROLL * CHAINS * c32["n"] * 2
+    t_ops, t_bytes = 1e3 * flops / roofline.PEAK_F32, 1e3 * 8 * c32["n"] / roofline.PEAK_BYTES
+    row = {"name": "microbench", "route": "cuda",
+           "source": "lisp_mcmc_torch/csrc/microbench.cu",
+           "replaces": "benchmarks/roofline.py:55",
+           "launches": launches["chain_probe"],
+           "max_abs_err": checks["fma_float32"]["max_abs_err"],
+           "ms": probe["t2_ms"], "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "opmix_bound_ms": 1e3 * flops / c32["fma_flops_per_sec"],
+           "library_ms": None}
+    return c32, row
+
+
 def _flagship_walker(n_walkers, dtype, device, config=None, log_prior=None,
-                     params=START, jitter=0.05):
+                     params=None, jitter=0.05):
+    """The flagship fit on the synthetic data, from ``params`` (default:
+    the test.lisp start)."""
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch.models import lorder_mixed_bg
+    from lisp_mcmc_torch.roofline import START, synthetic_flagship
 
     x, y = synthetic_flagship()
+    params = START if params is None else params
     return mfit.walker_create(
         function=lorder_mixed_bg, data=(x, y), params=params, data_error=1e-7,
         log_prior=log_prior, n_walkers=n_walkers, seed=0, walker_jitter=jitter,
         config=config, dtype=dtype, device=device)
 
 
-def phase_fused():
+def phase_fused(ceilings):
     """Kernel 1 against its plain version at the flagship's shape."""
     import torch
     import lisp_mcmc_torch as mfit
-    from lisp_mcmc_torch.ops.loglik_kernel import (fused_posterior,
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_census,
+                                                   fused_posterior,
                                                    fused_posterior_plain,
                                                    prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP, N_POINTS
 
     bounds = mfit.make_bounds_prior({"linewidth": (1.0, 500.0),
                                      "x0": (2700.0, 2900.0), "mix": (0.0, 6.3)})
@@ -197,36 +283,43 @@ def phase_fused():
             ms = cuda_time_ms(lambda: fused_posterior(pos, term), 50)
             plain_ms = cuda_time_ms(lambda: fused_posterior_plain(pos, term), 5)
             key = f"{str(dtype).split('.')[-1]}_{prior_name}"
+            if key == "float32_flat":
+                main_term = term
             results[key] = {"max_rel_err": rel, "rtol": rtol,
                             "max_abs_err": float(err.max()), "ms": ms,
                             "plain_ms": plain_ms, "walkers_far_out": n_out}
     emit({"phase": "fused_posterior", "W": W_FLAGSHIP, "d": 6, "N": N_POINTS,
           "results": results})
     main = results["float32_flat"]
-    peak = PEAK_F32
-    flops = W_FLAGSHIP * N_POINTS * (FLOPS_PER_POINT["lorder_mixed_bg"]
-                                     + FLOPS_PER_POINT["normal"])
-    nbytes = 4 * (W_FLAGSHIP * 6 + 3 * N_POINTS + W_FLAGSHIP)
+    census = fused_census(main_term.model_id, main_term.kind)
     return {"name": "fused_posterior", "route": "cuda",
             "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
             "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], **_bound(flops, peak, nbytes),
+            "plain_ms": main["plain_ms"],
+            **_bounds(census, 1, fused_bytes(main_term, W_FLAGSHIP), ceilings),
             "library_ms": None}
 
 
-def _bound(flops, peak, nbytes):
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+def _bounds(census, steps, nbytes, ceilings):
+    """The published-peak bound and the op-mix bound (measured float32
+    ceilings) of ``steps`` flagship evaluations of a float32 kernel."""
+    import torch
+    from lisp_mcmc_torch.ops.loglik_kernel import opmix_bound_ms
+    from lisp_mcmc_torch.roofline import N_POINTS, peak_bound
+
+    return {**peak_bound(census, W_FLAGSHIP, N_POINTS, steps, nbytes, torch.float32),
+            "opmix_bound_ms": opmix_bound_ms(census, W_FLAGSHIP, N_POINTS, steps,
+                                             ceilings)}
 
 
-def phase_chunk():
+def phase_chunk(ceilings):
     """Kernel 2 against its plain version: one chunk at W = 131072."""
     import torch
-    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_rwm,
+    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
+                                                  chunk_census, chunk_rwm,
                                                   chunk_rwm_plain)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
 
     w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP,
                          jitter=1e-3)
@@ -266,27 +359,27 @@ def phase_chunk():
           "walker_agreement": agree,
           "pos_max_rel_err": pos_rel, "logprob_max_abs_err": lp_err,
           "ms": ms, "plain_ms": plain_ms})
-    d = 6
-    flops = ck.chunk * W_FLAGSHIP * (
-        N_POINTS * (FLOPS_PER_POINT["lorder_mixed_bg"] + FLOPS_PER_POINT["normal"])
-        + _chunk_step_flops(d))
-    nbytes = 4 * (W_FLAGSHIP * (2 * d + 2) * 2 + W_FLAGSHIP + 3 * N_POINTS
-                  + d * d + ck.chunk * 3)
+    census = chunk_census(ck.term.model_id, ck.term.kind, ck.d)
     return {"name": "chunk_rwm", "route": "cuda",
             "source": "lisp_mcmc_torch/csrc/chunk_rwm.cu",
             "replaces": "lisp_mcmc_tpu/ops/chunk_pallas.py:95",
             "max_abs_err": lp_err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(flops, PEAK_F32, nbytes), "library_ms": None}
+            **_bounds(census, ck.chunk, chunk_bytes(ck.term, W_FLAGSHIP, ck.chunk),
+                      ceilings),
+            "library_ms": None}
 
 
 def _lp_generating():
     import torch
+    from lisp_mcmc_torch.roofline import FLAGSHIP
 
     w = _flagship_walker(1, torch.float64, DEVICE, params=FLAGSHIP, jitter=0.0)
     return float(w.state.logprob[0])
 
 
 def _quality(w, lp_gen, name):
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
     lp, best = w.most_likely_step()
     acc = w.acceptance()
     check(lp >= lp_gen - 5.0, f"{name}: best lp {lp} < lp(generating) {lp_gen} - 5")
@@ -401,22 +494,25 @@ def main():
     try:
         from lisp_mcmc_torch.ops.chunk_kernel import chunk_rwm
         from lisp_mcmc_torch.ops.loglik_kernel import fused_posterior
+        from lisp_mcmc_torch.ops.microbench import chain_probe
     except ImportError as e:
         print(f"chip_smoke: lisp_mcmc_torch not found beside this script: {e}",
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = (fused_posterior, chunk_rwm)
+    counters = (fused_posterior, chunk_rwm, chain_probe)
     t_start = time.perf_counter()
     phase_card()
     phase_build()
-    kernels = [phase_fused(), phase_chunk()]
+    ceilings, probe_row = phase_roofline(counters)
+    kernels = [phase_fused(ceilings), phase_chunk(ceilings)]
     main_launches = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
     phase_profile()
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
+    kernels.append(probe_row)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

@@ -1,8 +1,9 @@
 """lisp_mcmc_torch: the adaptive-MCMC curve fitter on PyTorch and CUDA.
 
 The port of ``lisp_mcmc_tpu`` (JAX on a TPU) to one NVIDIA H100.  Plain
-tensor code is PyTorch; the two TPU kernels of the main path are CUDA
-C++ written for Hopper (``csrc/``), built with ``nvcc`` at first use.
+tensor code is PyTorch; the two TPU kernels of the main path, and the
+roofline's ceiling probe (``roofline.py``), are CUDA C++ written for
+Hopper (``csrc/``), built with ``nvcc`` at first use.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 

@@ -35,6 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lisp_mcmc_torch"
 KERNEL_SOURCES = {
     "fused_posterior": "fused_posterior.cu",
     "chunk_rwm": "chunk_rwm.cu",
+    "microbench": "microbench.cu",
 }
 _HEADERS = ("models.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,6 +1,7 @@
-"""Device operations: the two hand-written kernels and plain tensor ops.
+"""Device operations: the three hand-written kernels and plain tensor ops.
 
-``loglik_kernel`` (fused posterior) and ``chunk_kernel`` (whole-chunk rwm
-stepper) wrap the CUDA sources in ``../csrc``; ``linalg`` and
-``reductions`` are plain PyTorch.
+``loglik_kernel`` (fused posterior), ``chunk_kernel`` (whole-chunk rwm
+stepper) and ``microbench`` (the roofline's per-op ceiling probe) wrap
+the CUDA sources in ``../csrc``; ``linalg`` and ``reductions`` are plain
+PyTorch.
 """

@@ -32,11 +32,11 @@ import numpy as np
 import torch
 
 from ..device import check_launch, load_library
-from .loglik_kernel import (KIND_IDS, FusedTerm, pick_block,
+from .loglik_kernel import (KIND_IDS, FusedTerm, fused_census, pick_block,
                             posterior_raw_plain, prepare_fused_terms)
 
-__all__ = ["ChunkKernel", "build_chunk_kernel", "chunk_rwm", "chunk_rwm_plain",
-           "MAX_D"]
+__all__ = ["ChunkKernel", "build_chunk_kernel", "chunk_bytes", "chunk_census",
+           "chunk_rwm", "chunk_rwm_plain", "MAX_D"]
 
 MAX_D = 8
 _M32 = 0xFFFFFFFF
@@ -303,3 +303,36 @@ def chunk_rwm(ck: ChunkKernel, position, logprob, best_position, best_logprob,
 
 
 chunk_rwm.launches = 0  # kernel launches, for proof that a path used it
+
+
+def chunk_census(model_id: int, kind: str, d: int, n_bounded: int = 0) -> dict:
+    """Operations of one walker-step of the chunk kernel, by class.
+
+    The fused posterior's census (``loglik_kernel.fused_census``) with
+    ``per_step`` filled in from ``csrc/chunk_rwm.cu``, per walker-step:
+
+    - temperature: ``cos(step * rate) * amp``: 2 flops, 1 cos;
+    - Box-Muller per parameter: two uniforms (``f - 1``), ``-2 log u1``,
+      ``2 pi u2``, ``sqrt * cos``: 5 flops, 1 log, 1 sqrt, 1 cos;
+    - ``prop = pos + L z``: d multiplies, d(d-1)/2 FMAs, d adds = d^2 + d;
+    - the accept uniform and its log: 1 flop, 1 log; ``(lp' - lp) / T``:
+      1 flop, 1 division;
+    - moments: ``step * accf`` and ``msum +=`` per parameter, one FMA per
+      lower-triangle entry = d^2 + 3d; ``acc += accf``: 1;
+    - the trace's warp sum: 5 adds.
+
+    So ``2 d^2 + 9 d + 10`` flops, ``d + 1`` logs, ``d + 1`` cos, ``d``
+    square roots and 1 division per walker-step.
+    """
+    census = fused_census(model_id, kind, n_bounded)
+    census["per_step"].update(flops=2 * d * d + 9 * d + 10, div=1, log=d + 1,
+                              cos=d + 1, sqrt=d)
+    return census
+
+
+def chunk_bytes(term: FusedTerm, W: int, chunk: int) -> int:
+    """Bytes one chunk launch must move: position, logprob, best point and
+    best logprob in and out, the accept counts, the data columns, L and
+    the (chunk, 3) trace, all float32."""
+    d, n = term.d, term.cols[0].shape[0]
+    return 4 * (W * (2 * d + 2) * 2 + W + len(term.cols) * n + d * d + chunk * 3)

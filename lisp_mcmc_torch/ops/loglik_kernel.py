@@ -39,9 +39,10 @@ from ..likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
 from ..models.zoo import DEVICE_MODELS, device_model
 from ..priors import bound_penalty, log_prior_flat
 
-__all__ = ["FusedTerm", "build_fused_posterior", "fusable_terms",
+__all__ = ["FusedTerm", "OP_CLASSES", "build_fused_posterior",
+           "census_totals", "fusable_terms", "fused_bytes", "fused_census",
            "fused_posterior", "fused_posterior_plain", "kernel_coverage",
-           "pick_block", "prepare_fused_terms"]
+           "opmix_bound_ms", "pick_block", "prepare_fused_terms"]
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
@@ -266,3 +267,93 @@ def build_fused_posterior(terms, spec, dtype):
     if term is None:
         return None
     return lambda positions: fused_posterior(positions, term)
+
+
+# ---------------------------------------------------------------- op census
+#
+# Operations the kernels execute, by class, read off the CUDA source
+# (csrc/models.cuh).  "flops" are the non-division floating-point adds,
+# multiplies and FMAs, an FMA counted as 2; a division, square root, log,
+# exp or cos/sin is one operation of its own class (sin counts as cos).
+# Compares, selects, min/max and integer work are not counted, so a bound
+# built on the census is a lower bound.
+
+OP_CLASSES = ("flops", "div", "sqrt", "log", "exp", "cos")
+# the measured ceiling (roofline.microbench_ceilings) each class runs at;
+# a square root, like a division, is an IEEE reciprocal-and-refine sequence
+_RATE_OF = {"flops": "fma_flops_per_sec", "div": "div_per_sec",
+            "sqrt": "div_per_sec", "log": "log_per_sec", "exp": "exp_per_sec",
+            "cos": "cos_per_sec"}
+
+# twin id -> (per walker-point: Model::eval, per walker: Model::setup)
+_MODEL_CENSUS = {
+    # eval: u, u*u, u2+lw2, lw2-u2, c2*(.), c1*u+(.) (FMA), s*s, +bg0,
+    # bg1*x+(.) (FMA) = 11 flops, and num/(s*s); setup: lw*lw, three
+    # multiplies for c1, two for c2, cos(mix) and sin(mix)
+    0: ({"flops": 11, "div": 1}, {"flops": 6, "cos": 2}),
+    1: ({"flops": 2}, {}),  # b + m*x (FMA)
+}
+# likelihood kind -> (per walker-point: tile_sum, per walker: finish)
+_KIND_CENSUS = {
+    "normal": ({"flops": 4}, {"flops": 1}),       # (y-mu)*is, acc+z*z; -0.5*acc
+    "normal_cutoff": ({"flops": 7}, {}),          # (y-mu)*is, c-0.5*z*z, acc+lp*mask
+    "poisson": ({"flops": 4, "log": 1}, {}),      # y*log(mu)-mu, acc+(.)*mask
+}
+# per bounded parameter per walker: bound_penalty's two distances,
+# 1e-5*dist, exp, -1, *-1e10, and prior += (.)
+_BOUND_CENSUS = {"flops": 6, "exp": 1}
+
+
+def _classes(*parts):
+    """The sum of ``{class: count}`` dicts over every class."""
+    out = dict.fromkeys(OP_CLASSES, 0)
+    for part in parts:
+        for c, n in part.items():
+            out[c] += n
+    return out
+
+
+def fused_census(model_id: int, kind: str, n_bounded: int = 0) -> dict:
+    """Operations of one fused-posterior evaluation, by class.
+
+    ``{"per_point": ..., "per_walker": ..., "per_step": ...}``, each a dict
+    over :data:`OP_CLASSES`: per walker-point (model and reduction), per
+    walker (model setup, finish, ``total + prior`` and ``n_bounded``
+    bound penalties) and, for the chunk stepper, per walker-step beyond
+    the posterior (zero here).
+    """
+    point_m, walker_m = _MODEL_CENSUS[model_id]
+    point_k, walker_k = _KIND_CENSUS[kind]
+    return {"per_point": _classes(point_m, point_k),
+            "per_walker": _classes(walker_m, walker_k, {"flops": 1},
+                                   {c: n_bounded * n for c, n in _BOUND_CENSUS.items()}),
+            "per_step": _classes()}
+
+
+def census_totals(census: dict, W: int, N: int, steps: int = 1) -> dict:
+    """Operations by class for ``steps`` evaluations of W walkers over N
+    points."""
+    return {c: steps * W * (N * census["per_point"][c] + census["per_walker"][c]
+                            + census["per_step"][c])
+            for c in OP_CLASSES}
+
+
+def opmix_bound_ms(census: dict, W: int, N: int, steps: int,
+                   ceilings: dict) -> float:
+    """The op-mix roofline: ms the census takes at the measured ceilings.
+
+    ``sum over classes of count / rate``: non-division flops at the FMA
+    ceiling, divisions and square roots at the division rate, log, exp and
+    cos at their own (DESIGN.md's ``t_min`` over every class).
+    ``ceilings`` holds ``microbench_ceilings``' keys; a class the census
+    does not use needs no ceiling.
+    """
+    totals = census_totals(census, W, N, steps)
+    return 1e3 * sum(n / ceilings[_RATE_OF[c]] for c, n in totals.items() if n)
+
+
+def fused_bytes(term: FusedTerm, W: int) -> int:
+    """Bytes one evaluation must move: positions in, the data columns
+    once, the posterior out."""
+    size = term.cols[0].element_size()
+    return size * (W * term.d + len(term.cols) * term.cols[0].shape[0] + W)

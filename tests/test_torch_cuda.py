@@ -10,7 +10,10 @@ PyTorch is installed; run it on a GPU machine with
 Tolerances: the fused posterior float32 at rtol 1e-4 (the fit's
 equivalence probe), float64 at 1e-9; the chunk kernel at >= 99 % of
 walkers agreeing in accept count and position (rtol 1e-4), because a
-1-ulp difference of logf/cosf can flip a near-tie accept.
+1-ulp difference of logf/cosf can flip a near-tie accept; the chain
+probe at rtol 1e-4 in float32 (the kernel contracts the fma op into one
+FFMA and CUDA's cosf/expf/logf may differ from torch's by an ulp, over
+32 applications per chain) and 1e-10 in float64.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ import lisp_mcmc_torch as tfit
 from lisp_mcmc_torch.models import lorder_mixed_bg
 from lisp_mcmc_torch.ops import chunk_kernel as tck
 from lisp_mcmc_torch.ops import loglik_kernel as tlk
+from lisp_mcmc_torch.ops import microbench as tmb
 
 # The printed reference parameters with scale x10 (see test_torch_fit.py).
 FLAGSHIP = {"scale": -4.788638538682475e-5, "linewidth": 121.09571484294366,
@@ -91,3 +95,15 @@ def test_auto_takes_the_kernel_on_cuda(cuda):
     before = tlk.fused_posterior.launches
     w.adaptive_steps(400, auto=None)
     assert tlk.fused_posterior.launches - before >= 400
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_chain_probe_matches_plain(cuda, dtype, rtol):
+    x = torch.linspace(0.5, 2.0, 1000, dtype=dtype, device=cuda)  # a ragged block
+    for op in tmb.OPS:
+        before = tmb.chain_probe.launches
+        got = tmb.chain_probe(x, op, 4)
+        assert tmb.chain_probe.launches == before + 1
+        want = tmb.chain_probe_plain(x, op, 4)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        assert rel <= rtol, f"chain probe {op} {dtype}: {rel} > {rtol}"
