@@ -9,7 +9,7 @@ an H100) and the CUDA toolkit.  It
 2. builds the three CUDA kernels from ``lisp_mcmc_torch/csrc`` (one nvcc
    per source, started together);
 3. the roofline path: holds the chain-probe kernel against its plain
-   version for its five ops in float32 and float64 (and, where cuobjdump
+   version for its six ops in float32 and float64 (and, where cuobjdump
    exists, counts the FFMA/DFMA of the fma probes), measures the card's
    ceilings in both types and checks them against the published peaks,
    then runs ``lisp_mcmc_torch.roofline.main()`` at W = 131072;
@@ -52,13 +52,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 W_FLAGSHIP = 131072
 DEVICE = "cuda"
-# float32 and float64 tolerances of the chain probe against its plain
-# version: in float32 the kernel contracts the fma op into one FFMA (one
-# rounding where the plain version has two) and CUDA's cosf/expf/logf
-# differ from torch's by an ulp; 32 applications per chain then differ by
-# at most a few 1e-6.  In float64 the same differences are ~1e-16 an op.
-PROBE_RTOL = {"float32": 1e-4, "float64": 1e-10}
+# Relative tolerance of the chain probe against its plain version.  The
+# plain version rounds as the kernel does: the float32 fma once (it is exact
+# in float64 before the rounding), the division as one IEEE division, and
+# torch's CUDA cos, exp and log are the same library functions as the
+# kernel's; so float32 should agree bit for bit, and 1e-6 is 8 ulps of the
+# sum.  In float64 the kernel contracts the fma op into one DFMA where the
+# plain version rounds twice: ~1e-16 per application, 1e-12 after 512.
+PROBE_RTOL = {"float32": 1e-6, "float64": 1e-12}
+# At K = 4 one outer iteration moves every op's sum by more than the
+# tolerance (relative: fma 1e-5, add 1.6e-5, div 6e-6, cos 6e-5, log 3e-2),
+# so a kernel one iteration short fails the check; the check also asserts
+# it.  Not exp: exp(x * 1e-6) reaches its fixed point in one application,
+# and its probe's time growing with K (the ceilings check) shows that its
+# loop runs.
 PROBE_K = 4
+PROBE_CONVERGED = ("exp",)
 OUT = {"phases": []}
 
 
@@ -149,39 +158,55 @@ def _sass_fma_counts():
     return counts
 
 
+def _max_rel(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
 def phase_roofline(counters):
     """The third kernel and the path that runs it.
 
-    The chain probe against its plain version for every op in both types;
-    the ceilings in float32 and float64, checked against the published
-    peaks; then ``roofline.main()`` at the flagship's W with every launch
-    count set to 0 just before it.  Returns the float32 ceilings and the
-    probe's row of the kernels line.
+    The chain probe against its plain version for every op in both types,
+    with a check that the chains move far enough for the tolerance to see
+    a missing iteration; the ceilings in float32 and float64, checked
+    against the published peaks and for each probe's time growing with K;
+    then ``roofline.main()`` at the flagship's W with every launch count
+    set to 0 just before it.  Returns the float32 ceilings and the probe's
+    row of the kernels line.
     """
     import torch
     from lisp_mcmc_torch import roofline
+    from lisp_mcmc_torch.ops.loglik_kernel import class_rates, opmix_bound_ms
     from lisp_mcmc_torch.ops.microbench import (CHAINS, OPS, UNROLL, chain_probe,
-                                                chain_probe_plain)
+                                                chain_probe_plain, probe_census)
 
     n = roofline.full_occupancy(0)
     checks = {}
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
+        rtol = PROBE_RTOL[name]
         x = torch.linspace(0.5, 2.0, n, dtype=dtype, device=DEVICE)
         for op in OPS:
             got = chain_probe(x, op, PROBE_K)
             ref = chain_probe_plain(x, op, PROBE_K)
+            moved = _max_rel(chain_probe_plain(x, op, 0), ref)
+            last = _max_rel(chain_probe_plain(x, op, PROBE_K - 1), ref)
             torch.cuda.synchronize()
-            err = (got - ref).abs()
-            rel = float((err / ref.abs().clamp_min(1e-30)).max())
-            check(bool(torch.isfinite(got).all()), f"chain probe {op} {name}: non-finite")
-            check(rel <= PROBE_RTOL[name], f"chain probe {op} {name}: max relative "
-                  f"error {rel} > {PROBE_RTOL[name]}")
-            checks[f"{op}_{name}"] = {"max_rel_err": rel, "max_abs_err": float(err.max())}
+            rel = _max_rel(got, ref)
+            what = f"chain probe {op} {name}"
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+            check(rel <= rtol, f"{what}: max relative error {rel} > {rtol}")
+            check(moved > 10 * rtol, f"{what}: the chains moved {moved} from their "
+                  f"start, not 10x the tolerance {rtol}")
+            check(op in PROBE_CONVERGED or last > rtol, f"{what}: the last "
+                  f"iteration moved the sum {last}, within the tolerance {rtol}")
+            checks[f"{op}_{name}"] = {"max_rel_err": rel,
+                                      "max_abs_err": float((got - ref).abs().max()),
+                                      "moved": moved, "last_iteration_moved": last}
     sass = _sass_fma_counts()
+    want = UNROLL["fma"] * CHAINS
     if sass is not None:
-        check(sass == {"FFMA": UNROLL * CHAINS, "DFMA": UNROLL * CHAINS},
-              f"fma probes: {sass} FFMA/DFMA, want {UNROLL * CHAINS} each")
+        check(sass == {"FFMA": want, "DFMA": want},
+              f"fma probes: {sass} FFMA/DFMA, want {want} each")
     emit({"phase": "roofline_probe_check", "n": n, "K": PROBE_K,
           "rtol": PROBE_RTOL, "results": checks, "sass_fma": sass})
 
@@ -190,7 +215,14 @@ def phase_roofline(counters):
         ceilings[str(dtype).split(".")[-1]] = roofline.microbench_ceilings(dtype, DEVICE)
     card = roofline._card()
     c32, c64 = ceilings["float32"], ceilings["float64"]
-    emit({"phase": "ceilings", "card": card, **ceilings})
+    # each FMA ceiling against the published peak scaled to the SM clock
+    # its own probe ran at
+    at_clock = {name: c["fma_flops_per_sec"] / (peak * c["probes"]["fma"]["sm_mhz"]
+                                                / roofline.BOOST_MHZ)
+                for name, c, peak in (("float32", c32, roofline.PEAK_F32),
+                                      ("float64", c64, roofline.PEAK_F64))}
+    emit({"phase": "ceilings", "card": card, "fma_share_of_peak_at_its_clock": at_clock,
+          **ceilings})
     peak32 = c32["fma_flops_per_sec"] / roofline.PEAK_F32
     check(0.5 <= peak32 <= 1.03, f"f32 FMA ceiling at {peak32:.3f} of the peak")
     peak64 = c64["fma_flops_per_sec"] / roofline.PEAK_F64
@@ -198,6 +230,10 @@ def phase_roofline(counters):
     for name, c in ceilings.items():
         hbm = c["hbm_bytes_per_sec"] / roofline.PEAK_BYTES
         check(0.5 <= hbm <= 1.03, f"{name} HBM ceiling at {hbm:.3f} of the peak")
+        for op, p in c["probes"].items():
+            check(p["t2_ms"] / p["t1_ms"] >= p["k2"] / p["k1"] / 2,
+                  f"{name} {op} probe: {p['t2_ms']} ms at K={p['k2']} against "
+                  f"{p['t1_ms']} ms at K={p['k1']}: its time does not grow with K")
     check(c32["div_per_sec"] < c32["fma_flops_per_sec"] / 2,
           "f32 division rate at or above the FMA instruction rate")
 
@@ -213,20 +249,19 @@ def phase_roofline(counters):
         check(v["ms"] > 0 and 0 < v["opmix_share"], f"roofline: {k} row {v}")
     emit({"phase": "roofline", "report": report, "launches": launches})
 
-    probe = c32["probes"]["fma"]
-    x = torch.full((c32["n"],), 1.0001, dtype=torch.float32, device=DEVICE)
+    # the kernels row: the float32 fma probe's K2 launch
+    probe, n32 = c32["probes"]["fma"], c32["n"]
+    x = torch.full((n32,), 1.0001, dtype=torch.float32, device=DEVICE)
     plain_ms = cuda_time_ms(lambda: chain_probe_plain(x, "fma", probe["k2"]), 1)
-    flops = probe["k2"] * UNROLL * CHAINS * c32["n"] * 2
-    t_ops, t_bytes = 1e3 * flops / roofline.PEAK_F32, 1e3 * 8 * c32["n"] / roofline.PEAK_BYTES
+    census, apps = probe_census("fma"), probe["k2"] * UNROLL["fma"] * CHAINS
     row = {"name": "microbench", "route": "cuda",
            "source": "lisp_mcmc_torch/csrc/microbench.cu",
            "replaces": "benchmarks/roofline.py:55",
            "launches": launches["chain_probe"],
            "max_abs_err": checks["fma_float32"]["max_abs_err"],
            "ms": probe["t2_ms"], "plain_ms": plain_ms,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "opmix_bound_ms": 1e3 * flops / c32["fma_flops_per_sec"],
+           **roofline.peak_bound(census, n32, apps, 1, 8 * n32, torch.float32),
+           "opmix_bound_ms": opmix_bound_ms(census, n32, apps, 1, class_rates(c32)),
            "library_ms": None}
     return c32, row
 
@@ -305,12 +340,12 @@ def _bounds(census, steps, nbytes, ceilings):
     """The published-peak bound and the op-mix bound (measured float32
     ceilings) of ``steps`` flagship evaluations of a float32 kernel."""
     import torch
-    from lisp_mcmc_torch.ops.loglik_kernel import opmix_bound_ms
+    from lisp_mcmc_torch.ops.loglik_kernel import class_rates, opmix_bound_ms
     from lisp_mcmc_torch.roofline import N_POINTS, peak_bound
 
     return {**peak_bound(census, W_FLAGSHIP, N_POINTS, steps, nbytes, torch.float32),
             "opmix_bound_ms": opmix_bound_ms(census, W_FLAGSHIP, N_POINTS, steps,
-                                             ceilings)}
+                                             class_rates(ceilings))}
 
 
 def phase_chunk(ceilings):

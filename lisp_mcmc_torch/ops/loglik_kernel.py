@@ -40,9 +40,10 @@ from ..models.zoo import DEVICE_MODELS, device_model
 from ..priors import bound_penalty, log_prior_flat
 
 __all__ = ["FusedTerm", "OP_CLASSES", "build_fused_posterior",
-           "census_totals", "fusable_terms", "fused_bytes", "fused_census",
-           "fused_posterior", "fused_posterior_plain", "kernel_coverage",
-           "opmix_bound_ms", "pick_block", "prepare_fused_terms"]
+           "census_totals", "class_rates", "fusable_terms", "fused_bytes",
+           "fused_census", "fused_posterior", "fused_posterior_plain",
+           "kernel_coverage", "op_census", "opmix_bound_ms", "pick_block",
+           "prepare_fused_terms"]
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
@@ -279,11 +280,6 @@ def build_fused_posterior(terms, spec, dtype):
 # built on the census is a lower bound.
 
 OP_CLASSES = ("flops", "div", "sqrt", "log", "exp", "cos")
-# the measured ceiling (roofline.microbench_ceilings) each class runs at;
-# a square root, like a division, is an IEEE reciprocal-and-refine sequence
-_RATE_OF = {"flops": "fma_flops_per_sec", "div": "div_per_sec",
-            "sqrt": "div_per_sec", "log": "log_per_sec", "exp": "exp_per_sec",
-            "cos": "cos_per_sec"}
 
 # twin id -> (per walker-point: Model::eval, per walker: Model::setup)
 _MODEL_CENSUS = {
@@ -313,6 +309,14 @@ def _classes(*parts):
     return out
 
 
+def op_census(per_point=(), per_walker=(), per_step=()) -> dict:
+    """An op census from partial ``{class: count}`` dicts (absent classes
+    count 0): per walker-point, per walker and per walker-step."""
+    return {"per_point": _classes(dict(per_point)),
+            "per_walker": _classes(dict(per_walker)),
+            "per_step": _classes(dict(per_step))}
+
+
 def fused_census(model_id: int, kind: str, n_bounded: int = 0) -> dict:
     """Operations of one fused-posterior evaluation, by class.
 
@@ -324,10 +328,10 @@ def fused_census(model_id: int, kind: str, n_bounded: int = 0) -> dict:
     """
     point_m, walker_m = _MODEL_CENSUS[model_id]
     point_k, walker_k = _KIND_CENSUS[kind]
-    return {"per_point": _classes(point_m, point_k),
-            "per_walker": _classes(walker_m, walker_k, {"flops": 1},
-                                   {c: n_bounded * n for c, n in _BOUND_CENSUS.items()}),
-            "per_step": _classes()}
+    return op_census(per_point=_classes(point_m, point_k),
+                     per_walker=_classes(walker_m, walker_k, {"flops": 1},
+                                         {c: n_bounded * n
+                                          for c, n in _BOUND_CENSUS.items()}))
 
 
 def census_totals(census: dict, W: int, N: int, steps: int = 1) -> dict:
@@ -338,18 +342,45 @@ def census_totals(census: dict, W: int, N: int, steps: int = 1) -> dict:
             for c in OP_CLASSES}
 
 
-def opmix_bound_ms(census: dict, W: int, N: int, steps: int,
-                   ceilings: dict) -> float:
-    """The op-mix roofline: ms the census takes at the measured ceilings.
+def class_rates(ceilings: dict, take_out_add: bool = True) -> dict:
+    """The rate of each census class, from ``roofline.microbench_ceilings``.
 
-    ``sum over classes of count / rate``: non-division flops at the FMA
-    ceiling, divisions and square roots at the division rate, log, exp and
-    cos at their own (DESIGN.md's ``t_min`` over every class).
-    ``ceilings`` holds ``microbench_ceilings``' keys; a class the census
-    does not use needs no ceiling.
+    Non-division flops run at the FMA ceiling; divisions and square roots
+    (an IEEE reciprocal-and-refine sequence alike) at the division rate;
+    log, exp and cos at theirs.  The div, exp and log probes each apply one
+    add or multiply besides their op (``1.0001 / (x + 1e-6)``,
+    ``exp(x * 1e-6)``, ``log(x + 1)``), which the census counts as a flop
+    of its own: with ``take_out_add`` the add probe's time per application
+    is taken out of theirs.  The add probe runs at the same unroll, so its
+    share of the loop's own instructions goes too.  Without it the probes'
+    raw rates are used, as on the CPU, where the plain probes' times are
+    the dispatch of one or two ops and too noisy to take one from another.
+    """
+    t_add = 1.0 / ceilings["add_per_sec"] if take_out_add else 0.0
+
+    def net(key):
+        t = 1.0 / ceilings[key] - t_add
+        if t <= 0:
+            raise ValueError(f"class_rates: the add probe is not faster than "
+                             f"{key} ({ceilings['add_per_sec']} vs {ceilings[key]})")
+        return 1.0 / t
+
+    div = net("div_per_sec")
+    return {"flops": ceilings["fma_flops_per_sec"], "div": div, "sqrt": div,
+            "log": net("log_per_sec"), "exp": net("exp_per_sec"),
+            "cos": ceilings["cos_per_sec"]}
+
+
+def opmix_bound_ms(census: dict, W: int, N: int, steps: int,
+                   rates: dict) -> float:
+    """The op-mix roofline: ms the census takes at the given rates.
+
+    ``sum over classes of count / rate`` (DESIGN.md's ``t_min`` over every
+    class); ``rates`` maps each class to its operations per second
+    (:func:`class_rates`); a class the census does not use needs no rate.
     """
     totals = census_totals(census, W, N, steps)
-    return 1e3 * sum(n / ceilings[_RATE_OF[c]] for c, n in totals.items() if n)
+    return 1e3 * sum(n / rates[c] for c, n in totals.items() if n)
 
 
 def fused_bytes(term: FusedTerm, W: int) -> int:

@@ -17,13 +17,15 @@ chunk, ``lorder_mixed_bg`` on 334 points):
    nothing can merge or drop the repeated evaluations, and the JAX
    script's ``0 * lp`` dependency between them is not needed;
 3. the card's ceilings (:func:`microbench_ceilings`): FMA, division, cos,
-   exp and log issue rates from the chain-probe kernel
+   exp, log and add issue rates from the chain-probe kernel
    (``ops/microbench.py``, ``csrc/microbench.cu``) by the K-difference,
-   and HBM bandwidth from ``x + 1`` at two sizes by the size difference;
+   the SM clock during each probe, and HBM bandwidth from ``x + 1`` at two
+   sizes by the size difference;
 4. the op census of the kernels (``ops/loglik_kernel.py``,
    ``ops/chunk_kernel.py``): each kernel's op-mix bound at the measured
-   ceilings and its bound at the published peaks, and the share of each
-   that the kernel reaches.
+   rates (``loglik_kernel.class_rates``: on the GPU the add probe's time
+   taken out of the div, exp and log probes) and its bound at the
+   published peaks, and the share of each that the kernel reaches.
 
 Data: the JAX script reads the reference's example file; ``data=None``
 fits the synthetic flagship instead (:func:`synthetic_flagship`, seeded),
@@ -50,20 +52,23 @@ from .io import read_file_data
 from .kernel import FitConfig
 from .models import lorder_mixed_bg
 from .ops.chunk_kernel import chunk_bytes, chunk_census
-from .ops.loglik_kernel import (census_totals, fused_bytes, fused_census,
-                                fused_posterior, opmix_bound_ms,
+from .ops.loglik_kernel import (census_totals, class_rates, fused_bytes,
+                                fused_census, fused_posterior, opmix_bound_ms,
                                 prepare_fused_terms)
-from .ops.microbench import CHAINS, FLOPS_PER_OP, OPS, UNROLL, chain_probe
+from .ops.microbench import (CHAINS, FLOPS_PER_OP, OPS, UNROLL, chain_probe,
+                             sm_clock_mhz)
 
 __all__ = ["FLAGSHIP", "START", "N_POINTS", "PEAK_F32", "PEAK_F64",
-           "PEAK_BYTES", "synthetic_flagship", "wall", "chain_rate",
+           "PEAK_BYTES", "BOOST_MHZ", "synthetic_flagship", "wall", "chain_rate",
            "full_occupancy", "microbench_ceilings", "peak_bound", "main"]
 
 # Published peaks of an H100 SXM at its 700 W limit (NVIDIA data sheet):
-# FP32 and FP64 outside the tensor cores, HBM3 bandwidth.
+# FP32 and FP64 outside the tensor cores, HBM3 bandwidth; the arithmetic
+# peaks are at the 1980 MHz boost clock (132 SMs x 128 FP32 lanes x 2).
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
+BOOST_MHZ = 1980
 
 # The reference's printed flagship parameters with scale x10 (at the
 # printed scale the resonance is worth 1.5 log-units under sigma = 1e-7
@@ -154,8 +159,9 @@ def microbench_ceilings(dtype, device=None, n=None):
 
     Returns the JAX script's six keys (``fma_flops_per_sec``, an FMA
     counted as 2 flops; ``div_per_sec``, ``cos_per_sec``, ``exp_per_sec``,
-    ``log_per_sec``; ``hbm_bytes_per_sec``), plus ``n`` and ``probes``:
-    each op's K1, K2 and the ms of one launch at each.
+    ``log_per_sec``; ``hbm_bytes_per_sec``), ``add_per_sec``, ``n`` and
+    ``probes``: each op's K1, K2, the ms of one launch at each and, on the
+    GPU, the SM clock (MHz) during one more launch at K2.
     """
     dev = resolve_device(device)
     if n is None:
@@ -165,10 +171,12 @@ def microbench_ceilings(dtype, device=None, n=None):
     for op in OPS:
         k1, k2 = _k_pair(x, op)
         rate, (t1, t2) = chain_rate(lambda K, op=op: (chain_probe, x, op, K),
-                                    UNROLL * CHAINS * n * FLOPS_PER_OP[op], k1, k2)
+                                    UNROLL[op] * CHAINS * n * FLOPS_PER_OP[op], k1, k2)
         key = "fma_flops_per_sec" if op == "fma" else f"{op}_per_sec"
         out[key] = rate
         out["probes"][op] = {"k1": k1, "k2": k2, "t1_ms": t1 * 1e3, "t2_ms": t2 * 1e3}
+        if dev.type == "cuda":
+            out["probes"][op]["sm_mhz"] = sm_clock_mhz(x, op, k2)
 
     n_big, n_small = HBM_SIZES[dev.type]
     big = torch.ones(n_big, dtype=dtype, device=dev)
@@ -260,6 +268,7 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
 
     ceil = microbench_ceilings(dtype, dev)
     card = _card() if dev.type == "cuda" else None
+    rates = class_rates(ceil, take_out_add=dev.type == "cuda")
 
     # ---- the census and the bounds of both kernels
     fc = fused_census(term.model_id, term.kind, len(term.bounds))
@@ -271,7 +280,7 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
             ("fused_posterior", fc, 1, lik_t * 1e3, fused_bytes(term, walkers)),
             ("chunk_rwm", cc, chunk, chunk_kernel_t * 1e3, chunk_nbytes)):
         peak = peak_bound(census, walkers, n_pts, steps, nbytes, dtype)
-        opmix = opmix_bound_ms(census, walkers, n_pts, steps, ceil)
+        opmix = opmix_bound_ms(census, walkers, n_pts, steps, rates)
         kernels[name] = {"ms": ms, "opmix_bound_ms": opmix, "opmix_share": opmix / ms,
                          "peak_bound_ms": peak["bound_ms"],
                          "peak_bound_by": peak["bound_by"],
@@ -298,6 +307,7 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
         "census_bytes_per_chunk": chunk_nbytes,
         "achieved_flops_per_sec": chunk_flops / chunk_t,
         "ceilings": ceil,
+        "class_rates": rates,
         "pct_of_fma_ceiling": 100.0 * (chunk_flops / chunk_t) / ceil["fma_flops_per_sec"],
         "kernels": kernels,
     }

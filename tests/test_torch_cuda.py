@@ -11,9 +11,10 @@ Tolerances: the fused posterior float32 at rtol 1e-4 (the fit's
 equivalence probe), float64 at 1e-9; the chunk kernel at >= 99 % of
 walkers agreeing in accept count and position (rtol 1e-4), because a
 1-ulp difference of logf/cosf can flip a near-tie accept; the chain
-probe at rtol 1e-4 in float32 (the kernel contracts the fma op into one
-FFMA and CUDA's cosf/expf/logf may differ from torch's by an ulp, over
-32 applications per chain) and 1e-10 in float64.
+probe at rtol 1e-6 in float32 (the plain version rounds as the kernel
+does, fma included) and 1e-12 in float64 (the kernel's DFMA rounds once
+where the plain version rounds twice), with a check that the chains move
+far enough for those tolerances to see a missing iteration.
 """
 
 import numpy as np
@@ -97,13 +98,32 @@ def test_auto_takes_the_kernel_on_cuda(cuda):
     assert tlk.fused_posterior.launches - before >= 400
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-12)])
 def test_chain_probe_matches_plain(cuda, dtype, rtol):
     x = torch.linspace(0.5, 2.0, 1000, dtype=dtype, device=cuda)  # a ragged block
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
     for op in tmb.OPS:
         before = tmb.chain_probe.launches
         got = tmb.chain_probe(x, op, 4)
         assert tmb.chain_probe.launches == before + 1
         want = tmb.chain_probe_plain(x, op, 4)
-        rel = ((got - want).abs() / want.abs()).max().item()
-        assert rel <= rtol, f"chain probe {op} {dtype}: {rel} > {rtol}"
+        assert rel(got, want) <= rtol, f"chain probe {op} {dtype}: {rel(got, want)} > {rtol}"
+        # the tolerance sees the work: the chains moved 10x it from their
+        # start, and (but for exp, at its fixed point after one application)
+        # more than it in the last iteration
+        assert rel(tmb.chain_probe_plain(x, op, 0), want) > 10 * rtol, op
+        if op != "exp":
+            assert rel(tmb.chain_probe_plain(x, op, 3), want) > rtol, op
+
+
+def test_chain_probe_reads_the_sm_clock(cuda):
+    """Cycles over nanoseconds of the first thread: an H100's SM clock lies
+    between its idle and boost clocks."""
+    x = torch.ones(4096, device=cuda)
+    before = tmb.chain_probe.launches
+    mhz = tmb.sm_clock_mhz(x, "fma", 64)
+    assert tmb.chain_probe.launches == before + 1
+    assert 300 < mhz < 2500
