@@ -17,27 +17,45 @@ an H100) and the CUDA toolkit.  It
    the flagship's shape (W = 131072 walkers, d = 6, N = 334 points), in
    float32 and float64, with a flat and a bounds prior, and times both;
 5. holds the whole-chunk rwm kernel against its plain version for one
-   200-step chunk at W = 131072 from the same state and seed, and times
-   both;
-6. runs the flagship journey on the default path (fused kernel per step):
+   200-step chunk at W = 131072 from the same state, seed and dense L
+   (``synthetic.dense_l``), and times both;
+6. ``twins``: the fused kernel against its plain version at W = 131072,
+   N = 334 for each of the 13 zoo twins, with and without their optional
+   parameters, for every likelihood kind (Poisson where the model's mean
+   is positive), in float32 and float64; times each twin;
+7. ``global``: test.lisp:52-78's global fit (two datasets, 9 parameters,
+   the second model declared with ``models.renamed``): both kernels
+   against their plain versions at W = 131072 (the chunk kernel at d = 9,
+   and again on 1500-point datasets, which it stages tile by tile every
+   step), then the journey through ``mcmc_fit`` on the default path and through
+   ``adaptive_steps(collect_history=False)`` on
+   ``posterior_impl="chunk_kernel"``, each held to the flagship's gates;
+8. ``chunk_wide``: the chunk kernel's runtime-d variant against its plain
+   version on a five-dataset global fit (d = 18) at W = 131072;
+9. runs the flagship journey on the default path (fused kernel per step):
    ``walker_create`` + ``adaptive_steps(30000, temperature=10)`` with
    history, then ``most_likely_step`` and ``ess_from_history``;
-7. runs the journey again with ``posterior_impl="chunk_kernel"``
-   (``adaptive_steps(10000, collect_history=False)``);
-8. profiles two chunks of the default path (wall clock, device time by
-   kernel, the device's busy share);
-9. prints the ``kernels`` summary line (each kernel's time, launches on
-   its path, bound at the published peaks, op-mix bound at the measured
-   float32 ceilings, plain and library times), the card line and, last,
-   ``{"ok": true, "device": {...}}``.
+10. runs the journey again with ``posterior_impl="chunk_kernel"``
+    (``adaptive_steps(10000, collect_history=False)``);
+11. ``nv``: ``nv.fit_nv_file`` on a ';'-delimited file of three synthetic
+    spectra with W = 131072, one spectrum after another, the NV
+    constraints in torch beside the fused kernel; gates on mu1, mu2, the
+    field offset and the acceptance;
+12. profiles two chunks of the default path (wall clock, device time by
+    kernel, the device's busy share);
+13. prints the ``kernels`` summary line (each kernel's time, launches on
+    its path, bound at the published peaks, op-mix bound at the measured
+    float32 ceilings, plain and library times), the card line and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without the last line; it also refuses to run without a
 CUDA device.  The data is synthetic, made from a seed: the flagship model
 at the reference's printed parameters with scale x10 (at the printed scale
 the resonance is worth 1.5 log-units under sigma = 1e-7 and x0 is not
-identified) plus 1e-7 Gaussian noise.  Everything printed is also written
-to ``chiprun_out/chip_smoke.json``.
+identified) plus 1e-7 Gaussian noise; the global fit's and the NV
+spectra's from ``lisp_mcmc_torch.synthetic``.  Everything printed is also
+written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -68,6 +86,22 @@ PROBE_RTOL = {"float32": 1e-6, "float64": 1e-12}
 # loop runs.
 PROBE_K = 4
 PROBE_CONVERGED = ("exp",)
+# Steps of the global journeys (the flagship's 30000 on the default path;
+# the chunk path costs a second per 10000 steps) and of each NV spectrum.
+# The NV fits run the whole schedule (auto=None, as the flagship journeys
+# do): with the prob-settle stop, one spectrum entered the 2000-step cold
+# finish right after a x0.1 rescale and ended at acceptance 0.48.
+N_GLOBAL = 30000
+N_GLOBAL_CHUNK = 30000
+N_NV = 40000
+# The NV gates, fixed before the first chip run: mu1 and mu2 of the best
+# point, and the field offset, within 0.5 MHz of the generating values
+# (the dips are 20x the noise), acceptance in 0.2-0.4.
+NV_TOL_MHZ = 0.5
+# Points per dataset of the tiled chunk check: more than one 512-point
+# tile, so the chunk kernel stages the data tile by tile every step.
+N_TILED = 1500
+RTOL = {"float32": 1e-4, "float64": 1e-9}   # a fused kernel against its plain version
 OUT = {"phases": []}
 
 
@@ -125,17 +159,37 @@ def _nvcc():
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def _ptxas_table(log):
+    """``{kernel: {registers, stack, spill_stores, spill_loads}}`` from one
+    ``-Xptxas=-v`` log (device functions without a register line left out)."""
+    import re
+
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            table[name] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name in table:
+            table[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in table.items() if "registers" in v}
+
+
 def phase_build():
     from lisp_mcmc_torch.device import build_all
 
     t0 = time.perf_counter()
     logs = build_all()
     secs = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln][:24]
-             for name, log in logs.items()}
     emit({"phase": "build", "seconds": secs, "built": sorted(logs),
-          "ptxas": ptxas})
+          "ptxas": {name: _ptxas_table(log) for name, log in logs.items()}})
 
 
 def _sass_fma_counts():
@@ -286,9 +340,9 @@ def phase_fused(ceilings):
     """Kernel 1 against its plain version at the flagship's shape."""
     import torch
     import lisp_mcmc_torch as mfit
-    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_census,
-                                                   fused_posterior,
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
                                                    fused_posterior_plain,
+                                                   posterior_census,
                                                    prepare_fused_terms)
     from lisp_mcmc_torch.roofline import FLAGSHIP, N_POINTS
 
@@ -299,14 +353,14 @@ def phase_fused(ceilings):
         for prior_name, prior in (("flat", None), ("bounds", bounds)):
             w = _flagship_walker(W_FLAGSHIP, dtype, DEVICE, log_prior=prior,
                                  params=FLAGSHIP, jitter=0.02)
-            term = prepare_fused_terms(w.terms, w.spec, dtype)
-            check(term is not None, "flagship term outside the kernel's coverage")
+            post = prepare_fused_terms(w.terms, w.spec, dtype)
+            check(post is not None, "flagship fit outside the kernel's coverage")
             # near the peak (where f32 cancellation bites) and the far start
             pos = torch.cat([w.state.position[: W_FLAGSHIP // 2],
                              _flagship_walker(W_FLAGSHIP // 2, dtype, DEVICE).state.position])
             pos = pos.contiguous()
-            got = fused_posterior(pos, term)
-            ref = fused_posterior_plain(pos, term)
+            got = fused_posterior(pos, post)
+            ref = fused_posterior_plain(pos, post)
             torch.cuda.synchronize()
             check(got.shape == (W_FLAGSHIP,) and bool(torch.isfinite(got).all()),
                   "fused posterior: non-finite or misshapen output")
@@ -315,93 +369,368 @@ def phase_fused(ceilings):
             check(rel <= rtol, f"fused posterior {dtype} {prior_name}: max "
                   f"relative error {rel} > {rtol}")
             n_out = int((prior(w.spec.unflatten(pos)) < 0).sum()) if prior else 0
-            ms = cuda_time_ms(lambda: fused_posterior(pos, term), 50)
-            plain_ms = cuda_time_ms(lambda: fused_posterior_plain(pos, term), 5)
+            ms = cuda_time_ms(lambda: fused_posterior(pos, post), 50)
+            plain_ms = cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5)
             key = f"{str(dtype).split('.')[-1]}_{prior_name}"
             if key == "float32_flat":
-                main_term = term
+                main_post = post
             results[key] = {"max_rel_err": rel, "rtol": rtol,
                             "max_abs_err": float(err.max()), "ms": ms,
                             "plain_ms": plain_ms, "walkers_far_out": n_out}
     emit({"phase": "fused_posterior", "W": W_FLAGSHIP, "d": 6, "N": N_POINTS,
           "results": results})
     main = results["float32_flat"]
-    census = fused_census(main_term.model_id, main_term.kind)
     return {"name": "fused_posterior", "route": "cuda",
             "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
             "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"],
-            **_bounds(census, 1, fused_bytes(main_term, W_FLAGSHIP), ceilings),
+            **_bounds(posterior_census(main_post), 1,
+                      fused_bytes(main_post, W_FLAGSHIP), ceilings),
             "library_ms": None}
 
 
 def _bounds(census, steps, nbytes, ceilings):
     """The published-peak bound and the op-mix bound (measured float32
-    ceilings) of ``steps`` flagship evaluations of a float32 kernel."""
+    ceilings) of ``steps`` evaluations at W = 131072 of a float32 kernel;
+    ``census`` is a posterior's (``posterior_census``: every point summed
+    already)."""
     import torch
     from lisp_mcmc_torch.ops.loglik_kernel import class_rates, opmix_bound_ms
-    from lisp_mcmc_torch.roofline import N_POINTS, peak_bound
+    from lisp_mcmc_torch.roofline import peak_bound
 
-    return {**peak_bound(census, W_FLAGSHIP, N_POINTS, steps, nbytes, torch.float32),
-            "opmix_bound_ms": opmix_bound_ms(census, W_FLAGSHIP, N_POINTS, steps,
+    return {**peak_bound(census, W_FLAGSHIP, 1, steps, nbytes, torch.float32),
+            "opmix_bound_ms": opmix_bound_ms(census, W_FLAGSHIP, 1, steps,
                                              class_rates(ceilings))}
+
+
+# The chunk kernel's accepted-move moments against its plain version's,
+# entry by entry relative to sqrt(m_ii m_jj).  Only the walkers that
+# disagree (<= 1 %, in practice 0.1 %) take other steps; with a diagonal L
+# they moved the moments by 2e-5 at most (NVIDIA H100 80GB HBM3, 700 W).
+# With synthetic.dense_l the off-diagonal entries are signal, of a median
+# size above 10x this tolerance (checked), so a misplaced or dropped entry
+# fails.
+MOMENT_RTOL = 5e-3
+
+
+def _chunk_check(ck, state, L, what):
+    """One 200-step chunk of the kernel against its plain version from the
+    same state, L (dense: ``synthetic.dense_l``) and seed at anneal step
+    1000; returns the measurements.
+
+    A walker agrees when its accept count and its final position match
+    (rtol 1e-4): one near-tie flip, from a 1-ulp difference of logf/cosf,
+    sends a walker down another path, and at W = 131072 a few such paths
+    end with equal counts but other positions.  At least 99 % must agree.
+    A kernel that read L transposed would propose other steps everywhere.
+    The moments are held to :data:`MOMENT_RTOL`.
+    """
+    import torch
+    from lisp_mcmc_torch.ops.chunk_kernel import chunk_rwm, chunk_rwm_plain
+
+    seed = torch.tensor([20240607], dtype=torch.int32, device=DEVICE)
+    args = (state.position, state.logprob, state.best_position, state.best_logprob,
+            L, 1000, 0.0, seed)
+    got = chunk_rwm(ck, *args)
+    ref = chunk_rwm_plain(ck, *args)
+    torch.cuda.synchronize()
+    same_count = got["accept_counts"] == ref["accept_counts"]
+    walker_rel = ((got["position"] - ref["position"]).abs()
+                  / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
+    same = same_count & (walker_rel <= 1e-4)
+    agree = float(same.float().mean())
+    rate = float(got["accept_counts"].mean()) / ck.chunk
+    check(agree >= 0.99, f"{what}: {agree} of walkers agree in accept count and "
+          "position (rtol 1e-4); need >= 0.99")
+    check(0.05 < rate < 0.95, f"{what}: uninformative acceptance {rate}")
+    check(float(got["m_count"]) == float(got["accept_counts"].sum()),
+          f"{what}: m_count != sum of accept counts")
+    check(bool(torch.isfinite(got["logprob"]).all()), f"{what}: non-finite logprob")
+    diag = ref["m_outer"].diagonal()
+    scale = (diag[:, None] * diag[None, :]).sqrt()
+    off = ~torch.eye(ck.d, dtype=torch.bool, device=scale.device)
+    signal = float((ref["m_outer"].abs() / scale)[off].median())
+    check(signal >= 10 * MOMENT_RTOL, f"{what}: off-diagonal moments of median {signal} "
+          f"of sqrt(m_ii m_jj), too small for the {MOMENT_RTOL} check to see them")
+    m_err = float(((got["m_outer"] - ref["m_outer"]).abs() / scale).max())
+    check(m_err <= MOMENT_RTOL, f"{what}: moments {m_err} of sqrt(m_ii m_jj) from the "
+          f"plain version's (> {MOMENT_RTOL})")
+    ms = cuda_time_ms(lambda: chunk_rwm(ck, *args), 5)
+    plain_ms = cuda_time_ms(lambda: chunk_rwm_plain(ck, *args), 1)
+    return {"W": int(state.position.shape[0]), "d": ck.d, "chunk": ck.chunk,
+            "accept_rate": rate, "count_agreement": float(same_count.float().mean()),
+            "walker_agreement": agree, "pos_max_rel_err": float(walker_rel[same].max()),
+            "logprob_max_abs_err": float((got["logprob"] - ref["logprob"]).abs()[same].max()),
+            "moments_max_err": m_err, "moments_offdiag_median": signal,
+            "ms": ms, "plain_ms": plain_ms}
 
 
 def phase_chunk(ceilings):
     """Kernel 2 against its plain version: one chunk at W = 131072."""
+    import numpy as np
     import torch
     from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
-                                                  chunk_census, chunk_rwm,
-                                                  chunk_rwm_plain)
+                                                  chunk_census)
+    from lisp_mcmc_torch.ops.loglik_kernel import posterior_census
     from lisp_mcmc_torch.roofline import FLAGSHIP
+    from lisp_mcmc_torch.synthetic import dense_l
 
     w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP,
                          jitter=1e-3)
     ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
     check(ck is not None, "flagship chunk outside the kernel's scope")
-    st = w.state
-    L = torch.diag(3e-3 * torch.as_tensor(list(FLAGSHIP.values()),
-                                          dtype=torch.float32).abs()).to(DEVICE)
-    seed = torch.tensor([20240607], dtype=torch.int32, device=DEVICE)
-    args = (st.position, st.logprob, st.best_position, st.best_logprob, L,
-            1000, 0.0, seed)
-    got = chunk_rwm(ck, *args)
-    ref = chunk_rwm_plain(ck, *args)
-    torch.cuda.synchronize()
-    # A walker agrees when its accept count and its final position match
-    # (rtol 1e-4): one near-tie flip, from a 1-ulp difference of logf/cosf,
-    # sends a walker down another path, and at W = 131072 a few such paths
-    # end with equal counts but other positions.
-    same_count = got["accept_counts"] == ref["accept_counts"]
-    walker_rel = ((got["position"] - ref["position"]).abs()
-                  / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
-    same = same_count & (walker_rel <= 1e-4)
-    count_agree = float(same_count.float().mean())
-    agree = float(same.float().mean())
-    rate = float(got["accept_counts"].mean()) / ck.chunk
-    check(agree >= 0.99, f"chunk: {agree} of walkers agree in accept count and "
-          "position (rtol 1e-4); need >= 0.99")
-    pos_rel = float(walker_rel[same].max())
-    check(float(got["m_count"]) == float(got["accept_counts"].sum()),
-          "chunk: m_count != sum of accept counts")
-    check(bool(torch.isfinite(got["logprob"]).all()), "chunk: non-finite logprob")
-    lp_err = float((got["logprob"] - ref["logprob"]).abs()[same].max())
-    ms = cuda_time_ms(lambda: chunk_rwm(ck, *args), 5)
-    plain_ms = cuda_time_ms(lambda: chunk_rwm_plain(ck, *args), 1)
-    emit({"phase": "chunk_rwm", "W": W_FLAGSHIP, "chunk": ck.chunk,
-          "accept_rate": rate, "count_agreement": count_agree,
-          "walker_agreement": agree,
-          "pos_max_rel_err": pos_rel, "logprob_max_abs_err": lp_err,
-          "ms": ms, "plain_ms": plain_ms})
-    census = chunk_census(ck.term.model_id, ck.term.kind, ck.d)
+    L = dense_l(3e-3 * np.asarray(list(FLAGSHIP.values()))).to(DEVICE)
+    res = _chunk_check(ck, w.state, L, "chunk")
+    emit({"phase": "chunk_rwm", **res})
+    census = chunk_census(posterior_census(ck.post), ck.d)
     return {"name": "chunk_rwm", "route": "cuda",
             "source": "lisp_mcmc_torch/csrc/chunk_rwm.cu",
             "replaces": "lisp_mcmc_tpu/ops/chunk_pallas.py:95",
-            "max_abs_err": lp_err, "ms": ms, "plain_ms": plain_ms,
-            **_bounds(census, ck.chunk, chunk_bytes(ck.term, W_FLAGSHIP, ck.chunk),
+            "max_abs_err": res["logprob_max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            **_bounds(census, ck.chunk, chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk),
                       ceilings),
             "library_ms": None}
+
+
+_KINDS = ("normal", "normal_cutoff", "poisson")
+
+
+def _fused_check(post, pos, rtol, what):
+    """The fused kernel against its plain version at ``pos``: the largest
+    error relative to max(|plain|, |plain - scalar constant|, 1)
+    (``posterior_rel_err``: the constant can cancel the misfit to a sum
+    near 0)."""
+    import torch
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_posterior, fused_posterior_plain,
+                                                   posterior_rel_err)
+
+    got = fused_posterior(pos, post)
+    ref = fused_posterior_plain(pos, post)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"{what}: non-finite or misshapen output")
+    rel = posterior_rel_err(got, ref, post)
+    check(rel <= rtol, f"{what}: max relative error {rel} > {rtol}")
+    return rel, float((got - ref).abs().max())
+
+
+def phase_twins(ceilings):
+    """Every twin, with and without its optional parameters, every kind it
+    takes, both types, at W = 131072 and N = 334; times each in float32.
+
+    The Poisson kind fits counts of the model (y rounded).  The check is
+    ``posterior_rel_err``, which is not fooled by a log-normalisation
+    that cancels the misfit.
+    """
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.models import DEVICE_MODELS
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import N_POINTS
+
+    likelihoods = dict(zip(_KINDS, (mfit.log_likelihood_normal,
+                                    mfit.log_likelihood_normal_cutoff,
+                                    mfit.log_likelihood_poisson)))
+    results, checked = {}, 0
+    for model in sorted(DEVICE_MODELS, key=lambda f: f.__name__):
+        row = {}
+        for optional in (True, False):
+            for kind in synthetic.twin_case(model, optional, N_POINTS)[3]:
+                x, yk, params, _ = synthetic.twin_case(model, optional, N_POINTS)
+                if kind == "poisson":
+                    yk = np.round(np.abs(yk))
+                for dtype in (torch.float32, torch.float64):
+                    dname = str(dtype).split(".")[-1]
+                    w = mfit.walker_create(
+                        function=model, data=(x, yk), params=params,
+                        data_error=0.01 * np.abs(yk).max(),
+                        log_likelihood=likelihoods[kind], n_walkers=W_FLAGSHIP,
+                        walker_jitter=0.02, dtype=dtype, device=DEVICE)
+                    post = prepare_fused_terms(w.terms, w.spec, dtype)
+                    check(post is not None, f"{model.__name__}: outside the coverage")
+                    what = f"twin {model.__name__} {kind} {dname} optional={optional}"
+                    rel, _ = _fused_check(post, w.state.position, RTOL[dname], what)
+                    checked += 1
+                    row[f"{kind}_{dname}_{'all' if optional else 'required'}"] = rel
+                    if optional and kind == "normal" and dtype == torch.float32:
+                        pos = w.state.position
+                        row["ms"] = cuda_time_ms(lambda: fused_posterior(pos, post), 20)
+                        row["plain_ms"] = cuda_time_ms(
+                            lambda: fused_posterior_plain(pos, post), 3)
+                        row.update(_bounds(posterior_census(post), 1,
+                                           fused_bytes(post, W_FLAGSHIP), ceilings))
+        results[model.__name__] = row
+    emit({"phase": "twins", "W": W_FLAGSHIP, "N": N_POINTS, "checked": checked,
+          "rtol": RTOL, "results": results})
+
+
+def _global_walker(g, params, n_walkers, dtype, jitter, config=None):
+    import lisp_mcmc_torch as mfit
+
+    return mfit.walker_create(function=g["functions"], data=g["data"], params=params,
+                              data_error=1e-7, n_walkers=n_walkers, seed=0,
+                              walker_jitter=jitter, config=config, dtype=dtype,
+                              device=DEVICE)
+
+
+def phase_global(ceilings, counters):
+    """test.lisp:52-78's global fit: both kernels against their plain
+    versions, then the journey on both paths."""
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
+                                                  chunk_census, data_resident)
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+
+    g = synthetic.global_fit(2)
+    out = {"phase": "global", "W": W_FLAGSHIP, "d": len(g["truth"]),
+           "terms": len(g["functions"])}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        near = _global_walker(g, g["truth"], W_FLAGSHIP // 2, dtype, 0.02)
+        far = _global_walker(g, g["start"], W_FLAGSHIP // 2, dtype, 0.05)
+        pos = torch.cat([near.state.position, far.state.position]).contiguous()
+        post = prepare_fused_terms(near.terms, near.spec, dtype)
+        check(post is not None and len(post.terms) == 2,
+              "global: the fit is outside the fused kernel's coverage")
+        rel, abs_err = _fused_check(post, pos, RTOL[dname], f"global fused {dname}")
+        out[f"fused_{dname}"] = {"max_rel_err": rel, "max_abs_err": abs_err}
+        if dtype == torch.float32:
+            out["fused_ms"] = cuda_time_ms(lambda: fused_posterior(pos, post), 50)
+            out["fused_plain_ms"] = cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5)
+            out["fused_bounds"] = _bounds(posterior_census(post), 1,
+                                          fused_bytes(post, W_FLAGSHIP), ceilings)
+    w = _global_walker(g, g["truth"], W_FLAGSHIP, torch.float32, 1e-3)
+    ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
+    check(ck is not None, "global: outside the chunk kernel's scope")
+    L = synthetic.dense_l(3e-3 * np.asarray(list(g["truth"].values()))).to(DEVICE)
+    out["chunk"] = _chunk_check(ck, w.state, L, "global chunk d=9")
+    out["chunk_bounds"] = _bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
+                                  chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)
+    check(data_resident(ck.post), "global: the data is not resident")
+    # the tiled path: 1500 points are more than one tile
+    gt = synthetic.global_fit(2, n_points=N_TILED)
+    wt = _global_walker(gt, gt["truth"], W_FLAGSHIP, torch.float32, 1e-3)
+    ckt = build_chunk_kernel(wt.terms, wt.spec, wt.config, W_FLAGSHIP, torch.float32)
+    check(not data_resident(ckt.post), "global tiled: the data is resident")
+    out["chunk_tiled"] = {"points": N_TILED,
+                          **_chunk_check(ckt, wt.state, L, "global chunk d=9 tiled")}
+    lp_gen = float(_global_walker(g, g["truth"], 1, torch.float64, 0.0).state.logprob[0])
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = mfit.mcmc_fit(function=g["functions"], data=g["data"], params=g["start"],
+                      data_error=1e-7, n_steps=N_GLOBAL, n_walkers=W_FLAGSHIP, seed=0,
+                      walker_jitter=0.05, config=mfit.FitConfig(auto=None), device=DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches["fused_posterior"] > 0, "global journey: the fused kernel never launched")
+    out["journey_default"] = {"steps": N_GLOBAL, "seconds": secs,
+                              "chain_steps_per_sec": W_FLAGSHIP * N_GLOBAL / secs,
+                              "launches": launches,
+                              **_global_report(w, g, lp_gen, "global journey")}
+
+    w = _global_walker(g, g["start"], W_FLAGSHIP, torch.float32, 0.05,
+                       config=mfit.FitConfig(posterior_impl="chunk_kernel"))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.adaptive_steps(N_GLOBAL_CHUNK, temperature=10.0, auto=None, collect_history=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches["chunk_rwm"] > 0, "global chunk journey: the chunk kernel never launched")
+    out["journey_chunk_kernel"] = {"steps": N_GLOBAL_CHUNK, "seconds": secs,
+                                   "chain_steps_per_sec": W_FLAGSHIP * N_GLOBAL_CHUNK / secs,
+                                   "launches": launches,
+                                   **_global_report(w, g, lp_gen, "global chunk journey")}
+    emit(out)
+
+
+def phase_chunk_wide(ceilings):
+    """The chunk kernel's runtime-d variant: a five-dataset global fit, d = 18."""
+    import numpy as np
+    import torch
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.ops.chunk_kernel import (REGISTER_D, build_chunk_kernel,
+                                                  chunk_bytes, chunk_census)
+    from lisp_mcmc_torch.ops.loglik_kernel import posterior_census
+
+    g = synthetic.global_fit(5)
+    w = _global_walker(g, g["truth"], W_FLAGSHIP, torch.float32, 1e-3)
+    ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
+    check(ck is not None and ck.d > REGISTER_D, "chunk_wide: not the runtime-d variant")
+    L = synthetic.dense_l(3e-3 * np.asarray(list(g["truth"].values()))).to(DEVICE)
+    res = _chunk_check(ck, w.state, L, "chunk_wide d=18")
+    emit({"phase": "chunk_wide", "terms": len(g["functions"]), **res,
+          **_bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
+                    chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)})
+
+
+def phase_nv(counters):
+    """The NV pipeline: fit_nv_file on three synthetic spectra, one after
+    another, the constraints in torch beside the fused kernel."""
+    import tempfile
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import nv, synthetic
+    from lisp_mcmc_torch.ops.loglik_kernel import prepare_fused_terms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = synthetic.write_nv_file(os.path.join(tmp, "nv-spectra.txt"))
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walkers = nv.fit_nv_file(path, n_steps=N_NV, n_walkers=W_FLAGSHIP, device=DEVICE,
+                                 config=mfit.FitConfig(auto=None))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    check(len(walkers) == len(synthetic.NV_SPECTRA), "nv: wrong number of spectra")
+    check(launches["fused_posterior"] > 0, "nv: the fused kernel never launched")
+    spectra = []
+    for i, (w, truth) in enumerate(zip(walkers, synthetic.NV_SPECTRA)):
+        post = prepare_fused_terms(w.terms, w.spec, w.dtype)
+        check("_fused" in w._runner_cache and post is not None and len(post.rest) == 1,
+              f"nv {i}: not the fused path with the constraints in torch beside it")
+        # a walker that breaks mu1 < mu2 gets the -1e9 penalties on the kernel
+        # path as on the plain one
+        pos = w.state.position.clone()
+        mu1, mu2 = w.spec.index("mu1"), w.spec.index("mu2")
+        pos[::2, [mu1, mu2]] = pos[::2, [mu2, mu1]]
+        rel, _ = _fused_check(post, pos, RTOL["float32"], f"nv {i} constraints")
+        lp, best = w.most_likely_step()
+        spectra.append({"best_lp": lp, "mu1": best["mu1"], "mu2": best["mu2"],
+                        "truth_mu1": truth["mu1"], "truth_mu2": truth["mu2"],
+                        "field_offset": nv.walker_field_offset(w),
+                        "field_offset_truth": (truth["mu2"] - truth["mu1"]) / 2 / 2.8,
+                        "acceptance": w.acceptance(), "steps": w.age,
+                        "constraint_check_rel_err": rel})
+    emit({"phase": "nv", "W": W_FLAGSHIP, "spectra": spectra, "seconds": secs,
+          "chain_steps_per_sec": W_FLAGSHIP * sum(s["steps"] for s in spectra) / secs,
+          "launches": launches, "tolerance_mhz": NV_TOL_MHZ})
+    for i, sp in enumerate(spectra):
+        for k, want in (("mu1", "truth_mu1"), ("mu2", "truth_mu2"),
+                        ("field_offset", "field_offset_truth")):
+            check(abs(sp[k] - sp[want]) <= NV_TOL_MHZ,
+                  f"nv {i}: {k} {sp[k]} not within {NV_TOL_MHZ} of {sp[want]}")
+        check(0.2 <= sp["acceptance"] <= 0.4,
+              f"nv {i}: final acceptance {sp['acceptance']} outside 0.2-0.4")
 
 
 def _lp_generating():
@@ -412,22 +741,29 @@ def _lp_generating():
     return float(w.state.logprob[0])
 
 
-def _quality(w, lp_gen, name):
-    from lisp_mcmc_torch.roofline import FLAGSHIP
-
+def _quality(w, lp_gen, x0, name):
+    """The journeys' gates: best lp >= lp(generating) - 5, x0 within 1 %,
+    final acceptance in 0.2-0.4."""
     lp, best = w.most_likely_step()
     acc = w.acceptance()
     check(lp >= lp_gen - 5.0, f"{name}: best lp {lp} < lp(generating) {lp_gen} - 5")
-    check(abs(best["x0"] - FLAGSHIP["x0"]) <= 0.01 * FLAGSHIP["x0"],
-          f"{name}: x0 {best['x0']} not within 1% of {FLAGSHIP['x0']}")
+    check(abs(best["x0"] - x0) <= 0.01 * x0,
+          f"{name}: x0 {best['x0']} not within 1% of {x0}")
     check(0.2 <= acc <= 0.4, f"{name}: final acceptance {acc} outside 0.2-0.4")
     return lp, best, acc
+
+
+def _global_report(w, g, lp_gen, name):
+    lp, best, acc = _quality(w, lp_gen, g["truth"]["x0"], name)
+    return {"best_lp": lp, "lp_generating": lp_gen, "acceptance": acc,
+            "shared": {k: best[k] for k in ("linewidth", "x0", "mix")}, "best": best}
 
 
 def phase_journey(counters):
     """The default path: fused kernel per step, history on."""
     import torch
     import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch.roofline import FLAGSHIP
 
     lp_gen = _lp_generating()
     w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
@@ -440,7 +776,7 @@ def phase_journey(counters):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    lp, best, acc = _quality(w, lp_gen, "journey")
+    lp, best, acc = _quality(w, lp_gen, FLAGSHIP["x0"], "journey")
     check(launches["fused_posterior"] > 0,
           "journey: the fused posterior kernel was never launched")
     pos, _ = w._history()
@@ -460,6 +796,7 @@ def phase_chunk_journey(counters):
     """The chunk-kernel path: one launch per non-history chunk."""
     import torch
     import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch.roofline import FLAGSHIP
 
     lp_gen = _lp_generating()
     w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE,
@@ -473,7 +810,7 @@ def phase_chunk_journey(counters):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    lp, best, acc = _quality(w, lp_gen, "chunk journey")
+    lp, best, acc = _quality(w, lp_gen, FLAGSHIP["x0"], "chunk journey")
     check(launches["chunk_rwm"] > 0, "chunk journey: the chunk kernel was never launched")
     emit({"phase": "journey_chunk_kernel", "W": W_FLAGSHIP, "steps": n_steps,
           "seconds": secs, "chain_steps_per_sec": W_FLAGSHIP * n_steps / secs,
@@ -542,8 +879,12 @@ def main():
     phase_build()
     ceilings, probe_row = phase_roofline(counters)
     kernels = [phase_fused(ceilings), phase_chunk(ceilings)]
+    phase_twins(ceilings)
+    phase_global(ceilings, counters)
+    phase_chunk_wide(ceilings)
     main_launches = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
+    phase_nv(counters)
     phase_profile()
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]

@@ -60,31 +60,60 @@ def state_from_numpy(arrays: Mapping, dtype=torch.float64,
 
     ``arrays`` holds ``position, logprob, best_position, best_logprob,
     l_matrix, m_sum, m_outer, m_count`` (the JAX ``WalkerState`` layout,
-    one group), optionally ``age``, ``anneal_step`` and ``key`` (the raw
-    key words, e.g. ``jax.random.key_data(state.key)``).
+    one adaptation group), optionally ``age``, ``anneal_step`` and ``key``
+    (the raw key words, e.g. ``jax.random.key_data(state.key)``).  The
+    state does not depend on the fit's terms: a global fit's carries
+    across as a one-term fit's does.
     """
     device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     t = {k: torch.as_tensor(np.array(arrays[k]), **kw) for k in _STATE_ARRAYS}
     if t["l_matrix"].ndim == 2:
         t["l_matrix"] = t["l_matrix"][None]
+    W, d = t["position"].shape
+    shapes = {"logprob": (W,), "best_position": (W, d), "best_logprob": (W,),
+              "l_matrix": (1, d, d), "m_sum": (1, d), "m_outer": (1, d, d),
+              "m_count": (1,)}
+    bad = {k: tuple(t[k].shape) for k, s in shapes.items() if tuple(t[k].shape) != s}
+    if bad:
+        raise ValueError(f"state_from_numpy: with position ({W}, {d}) and one "
+                         f"adaptation group, these arrays are misshapen: {bad}")
     state = WalkerState(**t, age=int(arrays.get("age", 0)),
                         anneal_step=int(arrays.get("anneal_step", 0)))
     return state, _seed_from_key(arrays.get("key"))
 
 
-def walker_from_numpy(arrays: Mapping, **create_kwargs):
+def walker_from_numpy(arrays: Mapping, datasets=None, **create_kwargs):
     """A port :class:`~lisp_mcmc_torch.fit.Walker` holding a given state.
 
     ``create_kwargs`` go to :func:`~lisp_mcmc_torch.fit.walker_create`
-    (model, data, params, errors, config, dtype, device); the walker count
-    comes from ``arrays["position"]``.  The state and the generator seed
-    come from :func:`state_from_numpy`.
+    (models, data, params, errors, priors, config, dtype, device); the
+    walker count comes from ``arrays["position"]``.  The state and the
+    generator seed come from :func:`state_from_numpy`.  For a global fit
+    the models and data are lists, one per term; a JAX wrapper that renames
+    a zoo model's parameters is given here as ``models.renamed``.
+
+    ``datasets`` (optional): one :func:`dataset_from_numpy` field mapping
+    per term, the datasets the state was made on (a JAX walker's, padded
+    and masked), installed in place of those built from ``data``.
+    ``arrays["keys"]`` (optional): the parameter order of the state's
+    columns, which must be the walker's.
     """
     from .fit import walker_create
 
     n_walkers = np.asarray(arrays["position"]).shape[0]
     w = walker_create(n_walkers=n_walkers, **create_kwargs)
+    keys = arrays.get("keys")
+    if keys is not None and tuple(keys) != w.spec.keys:
+        raise ValueError(f"walker_from_numpy: the state's columns are "
+                         f"{tuple(keys)}, the walker's {w.spec.keys}")
+    if datasets is not None:
+        if len(datasets) != len(w.terms):
+            raise ValueError(f"walker_from_numpy: {len(datasets)} datasets for "
+                             f"{len(w.terms)} terms")
+        for term, fields in zip(w.terms, datasets):
+            term.dataset = dataset_from_numpy(fields, dtype=w.dtype, device=w.device)
+        w._runner_cache.clear()
     w.state, seed = state_from_numpy(arrays, dtype=w.dtype, device=w.device)
     w.generator.manual_seed(seed)
     return w

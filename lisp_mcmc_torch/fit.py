@@ -10,7 +10,8 @@ layer (mcmc-fitting.lisp):
     device (``kernel.py``), and the host loop handles auto-stop, estop,
     history capture and the cold finish between chunks;
   - ``walker-many-steps`` (849-853): fixed-L stepping;
-  - ``walker-get`` / ``walker-modify`` (487-580): query and mutation verbs;
+  - ``walker-get`` / ``walker-modify`` (487-580): query and mutation verbs,
+    and ``walker-with-exp`` (1052-1064);
   - ``mcmc-fit`` (1165-1176): create + adaptive steps.
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
@@ -33,8 +34,10 @@ from .device import resolve_device
 from .kernel import (FitConfig, _neg_floor, build_chunk_runner, init_state,
                      resolve_accept_band)
 from .likelihoods import log_likelihood_normal, resolve_likelihood
-from .ops.chunk_kernel import build_chunk_kernel
-from .ops.loglik_kernel import build_fused_posterior, kernel_coverage
+from .ops.chunk_kernel import build_chunk_kernel, chunk_coverage
+from .ops.linalg import cholesky_clamped
+from .ops.loglik_kernel import (fused_posterior, kernel_coverage, posterior_rel_err,
+                                prepare_fused_terms)
 from .params import ParamSpec, normalize_params
 from .priors import log_prior_flat, resolve_prior
 
@@ -106,9 +109,12 @@ class Walker:
     """Host facade over a walker ensemble on one device.
 
     Query verbs (``walker-get``, mcmc-fitting.lisp:487-543):
-    ``most_likely_step``, ``most_likely_params``, ``acceptance``,
-    ``steps``.  Mutation verbs (``walker-modify``, 547-580): ``reset``,
-    ``burn_steps``, ``keep_steps``.
+    ``most_likely_step``, ``most_likely_params``, ``median_params``,
+    ``mean_params``, ``stddev_params``, ``acceptance``, ``steps``,
+    ``log_likelihoods``, ``param_trace``, ``covariance_matrix``,
+    ``l_matrix_estimate``, ``with_expression``.  Mutation verbs
+    (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
+    ``burn_steps``, ``keep_steps``, ``delete``.
     """
 
     def __init__(self, terms: list[_Term], spec: ParamSpec, initial_vector, *,
@@ -222,20 +228,22 @@ class Walker:
 
         The equivalence probe at the current ensemble catches a kernel
         that computes another posterior than the plain path (relative
-        1e-4); it raises rather than run the wrong kernel.
+        1e-4, ``ops.loglik_kernel.posterior_rel_err``); it raises rather
+        than run the wrong kernel.
         """
         fused = self._runner_cache.get("_fused")
         if fused is not None:
             return fused
-        fused = build_fused_posterior(self.terms, self.spec, self.dtype)
-        if fused is None:
+        post = prepare_fused_terms(self.terms, self.spec, self.dtype)
+        if post is None:
             raise ValueError(f"posterior_impl={impl_name!r}: the fit is "
                              "outside the fused kernel's coverage")
-        ref = _host(self._eval_batch(self.state.position)).astype(np.float64)
-        got = _host(fused(self.state.position)).astype(np.float64)
-        finite = np.isfinite(ref) & np.isfinite(got)
-        scale = np.maximum(np.abs(ref[finite]), 1.0)
-        if finite.any() and np.max(np.abs(ref[finite] - got[finite]) / scale) > 1e-4:
+
+        def fused(positions):
+            return fused_posterior(positions, post)
+
+        pos = self.state.position
+        if posterior_rel_err(fused(pos), self._eval_batch(pos), post) > 1e-4:
             raise ValueError(
                 f"posterior_impl={impl_name!r}: the fused kernel disagrees "
                 "with the plain posterior at the current ensemble")
@@ -250,15 +258,14 @@ class Walker:
             if cfg.posterior_impl == "chunk_kernel" and not with_history:
                 # Non-history chunks run as one kernel launch each; history
                 # chunks keep the per-step path.  The probe gates it too.
+                reason = chunk_coverage(self.terms, self.spec, cfg,
+                                        self.n_walkers, self.dtype)
+                if reason is not None:
+                    raise ValueError("posterior_impl='chunk_kernel': the fit is "
+                                     f"outside the chunk kernel's coverage: {reason}")
                 self._fused_posterior_probed("chunk_kernel")
                 chunk = build_chunk_kernel(self.terms, self.spec, cfg,
                                            self.n_walkers, self.dtype)
-                if chunk is None:
-                    raise ValueError(
-                        "posterior_impl='chunk_kernel' needs a float32 rwm fit "
-                        "with d <= 8 and a walker count that is a multiple of "
-                        f"128 (got {self.dtype}, d={self.ndim}, "
-                        f"W={self.n_walkers})")
             run, run_hist = build_chunk_runner(
                 self._batched_posterior(), self.spec.ndim, cfg,
                 chunk_kernel=chunk)
@@ -557,12 +564,78 @@ class Walker:
         pos, _ = self._history(take)
         return np.median(pos.reshape(-1, self.ndim), axis=0)
 
+    def median_params(self, take: int | None = None) -> dict[str, float]:
+        """Posterior median over retained history (``:median-params``, 516-523)."""
+        return self.spec.make(self.median_params_vector(take).tolist())
+
+    def mean_params(self, take: int | None = None) -> dict[str, float]:
+        """Posterior mean of each parameter over retained history."""
+        pos, _ = self._history(take)
+        return self.spec.make(np.mean(pos.reshape(-1, self.ndim), axis=0).tolist())
+
     def acceptance(self, take: int | None = None) -> float:
         """Exact pooled acceptance rate over recent chunks (``:acceptance``, 506)."""
         if not self._accept_log:
             return 0.0
         k = max(1, (take or 1000) // self.config.chunk_size)
         return float(torch.stack(self._accept_log[-k:]).mean())
+
+    def log_likelihoods(self, take: int | None = None, walker: int | None = None):
+        """Logprob trace (``:log-liklihoods``, 540): (T, W) or (T,) for one walker."""
+        _, lp = self._history(take)
+        return lp if walker is None else lp[:, walker]
+
+    def param_trace(self, name: str, take: int | None = None, walker: int = 0):
+        """One parameter's trace for one walker (``:param``, 509)."""
+        pos, _ = self._history(take)
+        return pos[:, walker, self.spec.index(name)]
+
+    def covariance_matrix(self, take: int | None = None):
+        """Covariance of retained unique samples (``:covariance-matrix``, 541).
+
+        Consecutive equal-prob steps are dropped per walker; the
+        population normalisation /N of the reference (643).
+        """
+        pos, lp = self._history(take)                   # (T, W, d), (T, W)
+        keep = np.ones(lp.shape, dtype=bool)
+        keep[1:] = lp[1:] != lp[:-1]
+        samples = pos[keep]                             # (K, d)
+        centered = samples - samples.mean(axis=0, keepdims=True)
+        return centered.T @ centered / max(1, samples.shape[0])
+
+    def l_matrix_estimate(self, take: int | None = None):
+        """Cholesky of the covariance of the forward steps' differences
+        (``:l-matrix``, 543), clamped as the adaptation's refresh is."""
+        pos, lp = self._history(take)
+        fwd = np.zeros(lp.shape, dtype=bool)
+        fwd[1:] = lp[1:] > lp[:-1]
+        fwd[0] = True
+        diffs = []
+        for w in range(pos.shape[1]):
+            f = pos[fwd[:, w], w]
+            if len(f) > 1:
+                diffs.append(np.diff(f, axis=0))
+        if not diffs:
+            return np.zeros((self.ndim, self.ndim))
+        diffs = np.concatenate(diffs, axis=0)
+        centered = diffs - diffs.mean(axis=0, keepdims=True)
+        cov = centered.T @ centered / max(1, diffs.shape[0])
+        chol, _ = cholesky_clamped(torch.as_tensor(cov))
+        return chol.numpy()
+
+    def stddev_params(self, take: int | None = None) -> dict[str, float]:
+        """Per-parameter stddevs = diag of the history's L
+        (``:stddev-params``, 525-539); zeros below 10 retained steps, as
+        the reference (527-528)."""
+        if len(self) < 10:
+            return self.spec.make([0.0] * self.ndim)
+        return self.spec.make(np.diag(self.l_matrix_estimate(take)).tolist())
+
+    def with_expression(self, expr: str, take: int | None = 1000):
+        """Derived quantity at the most-likely params (``walker-with-exp``)."""
+        from .expressions import walker_with_expression
+
+        return walker_with_expression(self, expr, take)
 
     # ---------------------------------------------------------- mutation verbs
 
@@ -573,6 +646,22 @@ class Walker:
         self._accept_log.clear()
         self._lpmax_trace.clear()
         self._lpmean_trace.clear()
+
+    def reset_to_most_likely(self):
+        """Restart every walker at the global best (``:reset-to-most-likely``, 574-578)."""
+        w = int(torch.argmax(self.state.best_logprob))
+        W = self.n_walkers
+        self.state = dataclasses.replace(
+            self.state,
+            position=self.state.best_position[w].expand(W, self.ndim).clone(),
+            logprob=self.state.best_logprob[w].expand(W).clone())
+        self.reset()
+
+    def delete(self):
+        """Free everything (``:delete``, 579-580)."""
+        self.reset()
+        self.terms = []
+        self._runner_cache.clear()
 
     def burn_steps(self, burn_number: int):
         """Drop the oldest ``burn_number`` steps (``:burn-walks``, 566-567)."""

@@ -1,16 +1,21 @@
 """Whole-chunk rwm stepper: ``chunk_size`` MH steps in one kernel launch.
 
 Port of ``lisp_mcmc_tpu/ops/chunk_pallas.py``.  The CUDA kernel
-(``csrc/chunk_rwm.cu``) keeps each walker's state in registers across
-the chunk: proposal draw (keyed counter hash + Box-Muller), the fused
-posterior (``csrc/models.cuh``), MH accept, best tracking and the
-accepted-move moments.  Adaptation and the trace contract stay with the
-chunk runner (``kernel.py``), which reads the dict this returns.
+(``csrc/chunk_rwm.cu``) keeps each walker's state on the chip across the
+chunk: proposal draw (keyed counter hash + Box-Muller), the fused
+posterior of every term (``csrc/models.cuh``), MH accept, best tracking
+and the accepted-move moments.  Adaptation and the trace contract stay
+with the chunk runner (``kernel.py``), which reads the dict this returns.
 
-Scope, as on the TPU: ungrouped rwm, float32, the fused kernel's
-coverage (``loglik_kernel.kernel_coverage``), a walker count with a
-128-multiple block, and d <= 8 (the CUDA kernel is templated on d).
-:func:`build_chunk_kernel` returns None outside it.
+Scope (:func:`chunk_coverage` names what is outside it): ungrouped,
+untempered rwm, float32, the fused kernel's coverage
+(``loglik_kernel.kernel_coverage``), priors that are bounds tables only
+(nothing else can run inside a 200-step launch), a walker count with a
+128-multiple block, and d <= :data:`MAX_D`.  Up to d = 16 the walker's
+state is in registers (variants for d <= 8 and d <= 16); above, a
+runtime-d variant keeps it in local memory.  The data stays in shared
+memory for the whole chunk where :func:`data_resident` says so, and is
+staged tile by tile every step otherwise.
 
 The random stream is the JAX kernel's, bit for bit in its uniforms:
 :func:`_hash_bits` / :func:`_uniform_from_bits` below reproduce
@@ -32,13 +37,17 @@ import numpy as np
 import torch
 
 from ..device import check_launch, load_library
-from .loglik_kernel import (KIND_IDS, FusedTerm, fused_census, pick_block,
-                            posterior_raw_plain, prepare_fused_terms)
+from .loglik_kernel import (FusedPosterior, kernel_coverage, pick_block,
+                            posterior_raw_plain, prepare_fused_terms, split_prior)
 
 __all__ = ["ChunkKernel", "build_chunk_kernel", "chunk_bytes", "chunk_census",
-           "chunk_rwm", "chunk_rwm_plain", "MAX_D"]
+           "chunk_coverage", "chunk_rwm", "chunk_rwm_plain", "MAX_D",
+           "REGISTER_D", "RESIDENT_FLOATS", "TILE", "data_resident"]
 
-MAX_D = 8
+MAX_D = 64         # the runtime-d variant's limit (csrc/chunk_rwm.cu: MAX_D_RUNTIME)
+REGISTER_D = 16    # up to here the walker's state is in registers
+RESIDENT_FLOATS = 8192  # data kept in shared memory for the whole chunk (csrc/chunk_rwm.cu)
+TILE = 512              # data points per shared-memory tile (csrc/models.cuh)
 _M32 = 0xFFFFFFFF
 _DRAW_OFFSET = 0x68E31DA4
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -78,9 +87,9 @@ def _uniform_from_bits(bits):
 
 @dataclasses.dataclass(frozen=True)
 class ChunkKernel:
-    """A built chunk stepper: the term and the chunk's constants."""
+    """A built chunk stepper: the posterior and the chunk's constants."""
 
-    term: FusedTerm
+    post: FusedPosterior
     chunk: int
     wb: int               # logical block of the random stream
     ts: float             # annealing constants (kernel.temperature_schedule)
@@ -91,30 +100,54 @@ class ChunkKernel:
 
     @property
     def d(self) -> int:
-        return self.term.d
+        return self.post.d
+
+
+def data_resident(post: FusedPosterior) -> bool:
+    """Whether the chunk kernel stages the data once for the whole chunk
+    (``lmt_chunk_rwm``): every term fits one tile and all terms' columns,
+    each at the tile's stride, fit :data:`RESIDENT_FLOATS`.  Otherwise it
+    stages each term tile by tile every step."""
+    return (all(t.n <= TILE for t in post.terms)
+            and sum(len(t.cols) for t in post.terms) * TILE <= RESIDENT_FLOATS)
+
+
+def chunk_coverage(terms, spec, config, n_walkers: int, dtype) -> str | None:
+    """Why the chunk kernel cannot run this fit, or None."""
+    if dtype != torch.float32:
+        return f"the chunk kernel runs float32 fits (got {dtype})"
+    if config.tempering_rungs > 1 or config.kernel != "rwm":
+        return "the chunk kernel runs the untempered rwm sampler"
+    if pick_block(n_walkers, 1024) is None:
+        return (f"the chunk kernel needs a walker count that is a multiple of "
+                f"128 (got W={n_walkers})")
+    if spec.ndim > MAX_D:
+        return f"d = {spec.ndim} is above the chunk kernel's {MAX_D}"
+    reason = kernel_coverage(terms, spec)
+    if reason is not None:
+        return reason
+    for i, t in enumerate(terms):
+        if split_prior(t.prior, spec.keys)[1] is not None:
+            name = getattr(t.prior, "__name__", repr(t.prior))
+            return (f"term {i}: prior {name!r} is not a bounds table alone; "
+                    "the chunk kernel evaluates no torch code inside its "
+                    "200-step launch")
+    return None
 
 
 def build_chunk_kernel(terms, spec, config, n_walkers: int, dtype,
                        *, block_walkers: int = 1024) -> ChunkKernel | None:
-    """Build a whole-chunk MH stepper, or None outside its scope."""
-    if dtype != torch.float32:
+    """Build a whole-chunk MH stepper, or None outside its scope
+    (:func:`chunk_coverage`)."""
+    if chunk_coverage(terms, spec, config, n_walkers, dtype) is not None:
         return None
-    if config.tempering_rungs > 1 or config.kernel != "rwm":
-        return None
-    if spec.ndim > MAX_D:
-        return None
-    wb = pick_block(n_walkers, block_walkers)
-    if wb is None:
-        return None
-    term = prepare_fused_terms(terms, spec, torch.float32)
-    if term is None:
-        return None
+    post = prepare_fused_terms(terms, spec, torch.float32)
     # Annealing schedule constants (kernel.temperature_schedule).
     ts = float(config.temp_steps(spec.ndim))
     mult = 1 + 2 * (int(ts) // config.temp_period)
     return ChunkKernel(
-        term=term, chunk=config.chunk_size, wb=wb, ts=ts,
-        phase_rate=math.pi * mult / (2.0 * ts),
+        post=post, chunk=config.chunk_size, wb=pick_block(n_walkers, block_walkers),
+        ts=ts, phase_rate=math.pi * mult / (2.0 * ts),
         temp_amp=float(config.temperature), greedy=bool(config.greedy),
         neg_floor=float(np.finfo(np.float32).min / 4))
 
@@ -136,15 +169,15 @@ def chunk_rwm_plain(ck: ChunkKernel, position, logprob, best_position,
     Same arguments and result as :func:`chunk_rwm`.  ``seed`` is an int or
     a one-element int32 tensor.
     """
-    term = ck.term
+    post = ck.post
     dev = position.device
     f32 = torch.float32
     W, d = position.shape
-    const = term.scalar_const.to(f32)
+    const = post.scalar_const.to(f32)
     pos = position.to(f32)
-    lp = (logprob - term.scalar_const).to(f32)
+    lp = (logprob - post.scalar_const).to(f32)
     best = best_position.to(f32)
-    best_lp = (best_logprob - term.scalar_const).to(f32)
+    best_lp = (best_logprob - post.scalar_const).to(f32)
     L = l_matrix.to(f32)
 
     w = torch.arange(W, device=dev, dtype=torch.int64)
@@ -172,7 +205,7 @@ def chunk_rwm_plain(ck: ChunkKernel, position, logprob, best_position,
             rows.append(srow)
         step_vec = torch.stack(rows, dim=1)
         prop = pos + step_vec
-        lp_prop = posterior_raw_plain(prop, term)
+        lp_prop = posterior_raw_plain(prop, post)
         lp_prop = torch.where(torch.isfinite(lp_prop), lp_prop, ck.neg_floor)
         log_u = torch.log(_uniform_from_bits(
             _hash_bits(c, key_sp, (key_step + 2 * _DRAW_OFFSET) & _M32)))
@@ -207,22 +240,21 @@ def chunk_rwm_plain(ck: ChunkKernel, position, logprob, best_position,
     }
 
 
-_CHUNK_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 12 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+_CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
                   best_logprob, l_matrix, anneal_step: int,
                   temp_override: float, seed):
-    term = ck.term
+    post = ck.post
     dev = position.device
     f32 = torch.float32
     W, d = position.shape
-    if d != ck.d or dev != term.cols[0].device:
+    if d != ck.d or dev != post.device:
         raise ValueError(f"chunk_rwm: position must be (W, {ck.d}) on "
-                         f"{term.cols[0].device}, got {tuple(position.shape)} "
-                         f"on {dev}")
+                         f"{post.device}, got {tuple(position.shape)} on {dev}")
     if W % ck.wb:
         raise ValueError(f"chunk_rwm: W={W} is not a multiple of the "
                          f"random stream's block {ck.wb}")
@@ -235,9 +267,9 @@ def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
         return t.to(f32).contiguous()
 
     pos = f32c(position)
-    lp = f32c(logprob - term.scalar_const)
+    lp = f32c(logprob - post.scalar_const)
     best = f32c(best_position)
-    best_lp = f32c(best_logprob - term.scalar_const)
+    best_lp = f32c(best_logprob - post.scalar_const)
     L = f32c(l_matrix)
     lib = load_library("chunk_rwm")
     fn = lib.lmt_chunk_rwm
@@ -252,21 +284,21 @@ def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
     lp_out, best_lp_out, acc_out = empty(W), empty(W), empty(W)
     msum_p, mouter_p = empty(nblk, d), empty(nblk, d, d)
     trace_p = empty(nblk, ck.chunk, 3)
-    cols = [c.data_ptr() for c in term.cols] + [None] * (5 - len(term.cols))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(d, term.model_id, KIND_IDS[term.kind],
+    code = fn(d, len(post.terms), ctypes.addressof(post.meta),
+              ctypes.addressof(post.col_ptrs),
               pos.data_ptr(), lp.data_ptr(), best.data_ptr(), best_lp.data_ptr(),
-              L.data_ptr(), seed.data_ptr(), term.pidx.data_ptr(), *cols,
-              term.cols[0].shape[0], term.bflag.data_ptr(), term.blo.data_ptr(),
-              term.bhi.data_ptr(), pos_out.data_ptr(), lp_out.data_ptr(),
-              best_out.data_ptr(), best_lp_out.data_ptr(), acc_out.data_ptr(),
-              msum_p.data_ptr(), mouter_p.data_ptr(), trace_p.data_ptr(),
+              L.data_ptr(), seed.data_ptr(), post.bcol.data_ptr(),
+              post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
+              pos_out.data_ptr(), lp_out.data_ptr(), best_out.data_ptr(),
+              best_lp_out.data_ptr(), acc_out.data_ptr(), msum_p.data_ptr(),
+              mouter_p.data_ptr(), trace_p.data_ptr(),
               W, ck.wb, ck.chunk, int(anneal_step), float(temp_override),
               ck.ts, ck.phase_rate, ck.temp_amp, ck.neg_floor, int(ck.greedy),
               stream)
     check_launch(lib, code, "chunk_rwm")
     chunk_rwm.launches += 1
-    const = term.scalar_const.to(f32)
+    const = post.scalar_const.to(f32)
     return {
         "position": pos_out,
         "logprob": lp_out + const,
@@ -305,11 +337,12 @@ def chunk_rwm(ck: ChunkKernel, position, logprob, best_position, best_logprob,
 chunk_rwm.launches = 0  # kernel launches, for proof that a path used it
 
 
-def chunk_census(model_id: int, kind: str, d: int, n_bounded: int = 0) -> dict:
+def chunk_census(census: dict, d: int) -> dict:
     """Operations of one walker-step of the chunk kernel, by class.
 
-    The fused posterior's census (``loglik_kernel.fused_census``) with
-    ``per_step`` filled in from ``csrc/chunk_rwm.cu``, per walker-step:
+    ``census`` is the posterior's (``loglik_kernel.fused_census`` or
+    ``posterior_census``); this adds ``per_step``, read off
+    ``csrc/chunk_rwm.cu``, per walker-step:
 
     - temperature: ``cos(step * rate) * amp``: 2 flops, 1 cos;
     - Box-Muller per parameter: two uniforms (``f - 1``), ``-2 log u1``,
@@ -322,17 +355,20 @@ def chunk_census(model_id: int, kind: str, d: int, n_bounded: int = 0) -> dict:
     - the trace's warp sum: 5 adds.
 
     So ``2 d^2 + 9 d + 10`` flops, ``d + 1`` logs, ``d + 1`` cos, ``d``
-    square roots and 1 division per walker-step.
+    square roots and 1 division per walker-step.  The runtime-d variant
+    (d > 16) warp-sums each moment entry every step, 5 adds more per entry,
+    which are not counted.
     """
-    census = fused_census(model_id, kind, n_bounded)
+    census = {row: dict(v) for row, v in census.items()}
     census["per_step"].update(flops=2 * d * d + 9 * d + 10, div=1, log=d + 1,
                               cos=d + 1, sqrt=d)
     return census
 
 
-def chunk_bytes(term: FusedTerm, W: int, chunk: int) -> int:
+def chunk_bytes(post: FusedPosterior, W: int, chunk: int) -> int:
     """Bytes one chunk launch must move: position, logprob, best point and
-    best logprob in and out, the accept counts, the data columns, L and
-    the (chunk, 3) trace, all float32."""
-    d, n = term.d, term.cols[0].shape[0]
-    return 4 * (W * (2 * d + 2) * 2 + W + len(term.cols) * n + d * d + chunk * 3)
+    best logprob in and out, the accept counts, every term's data columns,
+    L and the (chunk, 3) trace, all float32."""
+    d = post.d
+    data = sum(len(t.cols) * t.n for t in post.terms)
+    return 4 * (W * (2 * d + 2) * 2 + W + data + d * d + chunk * 3)

@@ -1,23 +1,31 @@
 """Fused posterior kernel: positions (W, d) -> (W,) log-posterior.
 
 Port of ``lisp_mcmc_tpu/ops/loglik_pallas.py``.  The CUDA kernel
-(``csrc/fused_posterior.cu``) runs one thread per walker: the model at
-every data point, the likelihood's reduction and the bounds prior stay in
-registers, with the data columns staged in shared memory; nothing of size
-W x N reaches device memory.  The walker-independent constant is added
-here, outside the kernel, as in the JAX package.
+(``csrc/fused_posterior.cu``) runs one thread per walker and loops over
+the posterior's terms as the Pallas kernel does: each term's model at
+every data point, its likelihood's reduction, then the bounds prior, all
+in registers, with each term's data columns staged in shared memory;
+nothing of size W x N reaches device memory.  The walker-independent
+constant is added here, outside the kernel, as in the JAX package.
 
 Pallas traced any jnp model and prior into its kernel; CUDA cannot trace
-a Python callable, so the kernel covers what has a device twin:
+a Python callable, so:
 
-- one posterior term (one model, one dataset);
-- a library likelihood (normal, normal_cutoff, poisson) over 1-D x;
-- a zoo model listed in ``models.DEVICE_MODELS`` (``csrc/models.cuh``);
-- the flat prior, or a bounds prior without ``extra``.
+- a term's model runs as its CUDA twin (``csrc/models.cuh``): any zoo
+  model (``models.DEVICE_MODELS``), or one declared with
+  ``models.renamed``;
+- a prior is split in two.  Its bounds table (``make_bounds_prior``'s
+  ``._bounds``) is evaluated in the kernel; whatever remains (the table's
+  ``extra``, or a prior that is not a table at all) is evaluated per walker
+  by the prior's own torch code on the ``(W,)`` parameter columns and
+  added to the kernel's output.
 
+:func:`kernel_coverage` refuses only what the Pallas kernel refuses too (a
+custom likelihood, multi-column x) and a model with no twin;
 :func:`prepare_fused_terms` returns None outside that coverage, and the
-caller decides at build time: ``posterior_impl="auto"`` then takes the
-plain path, a forced ``"kernel"`` raises.
+caller decides at build time (``fit.Walker._batched_posterior``):
+``posterior_impl="auto"`` then takes the plain path, a forced
+``"kernel"`` raises.
 
 :func:`fused_posterior` is the wrapper: on a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs :func:`fused_posterior_plain`,
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from collections.abc import Mapping
 from typing import Callable
 
 import torch
@@ -36,17 +45,25 @@ import torch
 from ..device import check_launch, load_library
 from ..likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
                            log_likelihood_poisson)
-from ..models.zoo import DEVICE_MODELS, device_model
-from ..priors import bound_penalty, log_prior_flat
+from ..models.zoo import MAX_POLY, device_model, model_coverage
+from ..priors import bound_penalty, log_prior_flat, prior_bounds
 
-__all__ = ["FusedTerm", "OP_CLASSES", "build_fused_posterior",
-           "census_totals", "class_rates", "fusable_terms", "fused_bytes",
-           "fused_census", "fused_posterior", "fused_posterior_plain",
-           "kernel_coverage", "op_census", "opmix_bound_ms", "pick_block",
-           "prepare_fused_terms"]
+__all__ = ["FusedPosterior", "FusedTerm", "MAX_TERMS", "OP_CLASSES",
+           "census_totals", "class_rates",
+           "fusable_terms", "fused_bytes", "fused_census", "fused_posterior",
+           "fused_posterior_plain", "kernel_coverage", "model_census",
+           "op_census", "opmix_bound_ms", "pick_block", "posterior_census",
+           "posterior_raw_plain", "posterior_rel_err", "prepare_fused_terms",
+           "split_prior"]
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
+# Limits of csrc/models.cuh: MAX_TERMS terms a launch, MAX_NP twin
+# parameters, MAX_COLS data columns; a term's row of the host metadata is
+# (model, kind, n, np, column of each of MAX_NP parameters), its META_STRIDE.
+MAX_TERMS = 8
+MAX_NP = MAX_POLY
+MAX_COLS = 5
 
 
 def _likelihood_kind(likelihood: Callable) -> str | None:
@@ -87,187 +104,285 @@ def pick_block(n_walkers: int, preferred: int = 2048) -> int | None:
     return None
 
 
-def _bounds_table(prior, keys) -> dict[int, tuple[float, float]] | None:
-    """``{column: (lo, hi)}`` for a prior the kernel evaluates, else None."""
+class _Penalties(Mapping):
+    """``prior_bounds(params, bounds)``, computed when first read: an
+    ``extra`` that ignores its penalties (as the NV constraints do) costs
+    no per-step torch work for a table the kernel has evaluated."""
+
+    def __init__(self, params, bounds):
+        self._args, self._value = (params, bounds), None
+
+    def _get(self):
+        if self._value is None:
+            self._value = prior_bounds(*self._args)
+        return self._value
+
+    def __getitem__(self, key):
+        return self._get()[key]
+
+    def __iter__(self):
+        return iter(self._get())
+
+    def __len__(self):
+        return len(self._get())
+
+
+def split_prior(prior, keys):
+    """``(bounds entries, rest)`` of a prior on a fit with these ``keys``.
+
+    The entries ``((column, lo, hi), ...)`` are the bounds table the
+    kernels evaluate; ``rest(params, dataset)`` is what remains, for torch
+    to evaluate beside them (None when nothing does): the ``extra`` of
+    ``make_bounds_prior`` (given the table's penalties, as the prior
+    gives them), or the whole of a prior that is not a table.  None when
+    the table names a parameter the fit lacks.
+    """
     if prior is log_prior_flat:
-        return {}
+        return (), None
     bounds = getattr(prior, "_bounds", None)
-    if bounds is None or getattr(prior, "_extra", None) is not None:
-        return None
-    table = {}
+    if bounds is None:
+        return (), prior
+    entries = []
     for name, (lo, hi) in bounds.items():
         key = name[1:] if name.startswith(":") else name
-        if key not in keys or keys.index(key) in table:
+        if key not in keys:
             return None
-        table[keys.index(key)] = (float(lo), float(hi))
-    return table
+        entries.append((keys.index(key), float(lo), float(hi)))
+    extra = getattr(prior, "_extra", None)
+    if extra is None:
+        return tuple(entries), None
+
+    def rest(params, dataset=None):
+        return extra(params, _Penalties(params, bounds), dataset)
+
+    return tuple(entries), rest
 
 
 def kernel_coverage(terms, spec) -> str | None:
-    """Why the fused kernels cannot evaluate this posterior, or None."""
-    if len(terms) != 1:
-        return f"{len(terms)} posterior terms (the kernels take one)"
-    t = terms[0]
+    """Why the fused kernel cannot evaluate this posterior, or None."""
+    if len(terms) > MAX_TERMS:
+        return f"{len(terms)} posterior terms (a launch takes up to {MAX_TERMS})"
     if not fusable_terms(terms):
         return ("a custom likelihood or multi-column x (the kernels take "
                 "the library normal/normal_cutoff/poisson reductions of 1-D x)")
-    if device_model(t.fn, spec.keys) is None:
-        name = getattr(t.fn, "__name__", repr(t.fn))
-        return (f"model {name!r} has no CUDA twin with all its parameters "
-                f"fitted (twins: {[f.__name__ for f in DEVICE_MODELS]})")
-    if _bounds_table(t.prior, spec.keys) is None:
-        return "a prior other than flat or a bounds table without extra"
+    for i, t in enumerate(terms):
+        reason = model_coverage(t.fn, spec.keys)
+        if reason is not None:
+            return f"term {i}: {reason}"
+        if split_prior(t.prior, spec.keys) is None:
+            return f"term {i}: its bounds table names a parameter the fit lacks"
     return None
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedTerm:
-    """Everything the kernels read for one term, on the term's device."""
+    """One term as the kernels read it, on the term's device."""
 
     kind: str
-    fn: Callable          # the torch model (the plain version's)
+    base: Callable        # the zoo model the twin mirrors (the plain version's)
     model_id: int
     names: tuple          # twin parameter names, in twin order
-    pidx_host: tuple      # column of each twin parameter
-    pidx: torch.Tensor    # the same, (NP,) int32 on the device
-    bounds: dict          # {column: (lo, hi)} in the prior's order
+    pidx_host: tuple      # column of each, -1 for an absent optional one
     cols: tuple           # (x, y, inv_sigma[, c_pt, mask]) or (x, y, mask)
-    bflag: torch.Tensor   # (d,) int32: 1 where the parameter is bounded
-    blo: torch.Tensor     # (d,) dtype
-    bhi: torch.Tensor     # (d,) dtype
+
+    @property
+    def n(self) -> int:
+        return self.cols[0].shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPosterior:
+    """Everything one evaluation reads: the terms, the bounds table of
+    every term's prior, the rest of the priors and the scalar constant."""
+
+    terms: tuple          # FusedTerm, in the fit's order
+    bounds: tuple         # ((column, lo, hi), ...), every term's table in turn
+    rest: tuple           # ((prior remainder, dataset), ...) for torch
+    keys: tuple           # the fit's parameter names (the remainders read them)
     scalar_const: torch.Tensor  # () dtype, added outside the kernel
-    d: int
+    bcol: torch.Tensor    # (nb,) int32
+    blo: torch.Tensor     # (nb,) dtype
+    bhi: torch.Tensor     # (nb,) dtype
+    meta: ctypes.Array    # host rows of csrc/models.cuh's make_terms
+    col_ptrs: ctypes.Array
+
+    @property
+    def d(self) -> int:
+        return len(self.keys)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.cols[0].dtype
+        return self.terms[0].cols[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.terms[0].cols[0].device
 
 
-def prepare_fused_terms(terms, spec, dtype) -> FusedTerm | None:
+def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
     """Host-side precomputation for the kernels, or None outside coverage.
 
-    The scalar normalization constant is kept apart (it cancels in MH
-    ratios and is added outside the kernel).
+    The scalar normalization constant of every term is kept apart (it
+    cancels in MH ratios and is added outside the kernel).
     """
     if kernel_coverage(terms, spec) is not None:
         return None
-    t = terms[0]
-    ds = t.dataset
-    dev = ds.device
-    kind = _likelihood_kind(t.likelihood)
-    model_id, pidx = device_model(t.fn, spec.keys)
+    dev = terms[0].dataset.device
 
     def col(a):
         return a.to(dtype).contiguous()
 
-    if kind == "normal":
-        cols = (col(ds.x), col(ds.y), col(ds.inv_sigma))
-        const = ds.log_norm_const.to(dtype)
-    elif kind == "normal_cutoff":
-        cols = (col(ds.x), col(ds.y), col(ds.inv_sigma),
-                col(ds.log_norm_const_point), col(ds.mask))
-        const = torch.zeros((), dtype=dtype, device=dev)
-    else:  # poisson
-        cols = (col(ds.x), col(ds.y), col(ds.mask))
-        const = -torch.sum(ds.log_fact_y.to(dtype))
-    d = spec.ndim
-    table = _bounds_table(t.prior, spec.keys)
-    bflag = torch.zeros(d, dtype=torch.int32)
-    blo = torch.zeros(d, dtype=torch.float64)
-    bhi = torch.zeros(d, dtype=torch.float64)
-    for r, (lo, hi) in table.items():
-        bflag[r], blo[r], bhi[r] = 1, lo, hi
-    return FusedTerm(
-        kind=kind, fn=t.fn, model_id=model_id, names=DEVICE_MODELS[t.fn][1],
-        pidx_host=pidx, pidx=torch.tensor(pidx, dtype=torch.int32, device=dev),
-        bounds=table,
-        cols=cols, bflag=bflag.to(dev), blo=blo.to(dtype=dtype, device=dev),
-        bhi=bhi.to(dtype=dtype, device=dev), scalar_const=const, d=d)
+    fused, bounds, rest = [], [], []
+    const = torch.zeros((), dtype=dtype, device=dev)
+    for t in terms:
+        ds = t.dataset
+        kind = _likelihood_kind(t.likelihood)
+        model_id, names, pidx, base = device_model(t.fn, spec.keys)
+        if kind == "normal":
+            cols = (col(ds.x), col(ds.y), col(ds.inv_sigma))
+            const = const + ds.log_norm_const.to(dtype)
+        elif kind == "normal_cutoff":
+            cols = (col(ds.x), col(ds.y), col(ds.inv_sigma),
+                    col(ds.log_norm_const_point), col(ds.mask))
+        else:  # poisson
+            cols = (col(ds.x), col(ds.y), col(ds.mask))
+            const = const - torch.sum(ds.log_fact_y.to(dtype))
+        fused.append(FusedTerm(kind=kind, base=base, model_id=model_id,
+                               names=names, pidx_host=pidx, cols=cols))
+        entries, remainder = split_prior(t.prior, spec.keys)
+        bounds.extend(entries)
+        if remainder is not None:
+            rest.append((remainder, ds))
+
+    meta = []
+    for ft in fused:
+        pidx = list(ft.pidx_host) + [-1] * (MAX_NP - len(ft.pidx_host))
+        meta += [ft.model_id, KIND_IDS[ft.kind], ft.n, len(ft.pidx_host), *pidx]
+    ptrs = []
+    for ft in fused:
+        ptrs += [c.data_ptr() for c in ft.cols] + [None] * (MAX_COLS - len(ft.cols))
+    return FusedPosterior(
+        terms=tuple(fused), bounds=tuple(bounds), rest=tuple(rest),
+        keys=tuple(spec.keys), scalar_const=const,
+        bcol=torch.tensor([b[0] for b in bounds], dtype=torch.int32, device=dev),
+        blo=torch.tensor([b[1] for b in bounds], dtype=dtype, device=dev),
+        bhi=torch.tensor([b[2] for b in bounds], dtype=dtype, device=dev),
+        meta=(ctypes.c_int * len(meta))(*meta),
+        col_ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
-def posterior_raw_plain(positions, term: FusedTerm):
-    """The kernel's function minus the scalar constant, in plain PyTorch.
+def posterior_raw_plain(positions, post: FusedPosterior):
+    """What the kernels compute, in plain PyTorch: every term's likelihood
+    minus the scalar constant, plus the bounds table.
 
-    Shared with the chunk stepper's plain version.
+    Each term runs its twin's zoo model on the twin's columns, so the
+    parameter mapping is the kernel's.  Shared with the chunk stepper's
+    plain version.
     """
-    params = {n: positions[:, i, None] for n, i in
-              zip(term.names, term.pidx_host)}
-    x, y = term.cols[0], term.cols[1]
-    mu = term.fn(x, params)                                  # (W, N)
-    if term.kind == "normal":
-        z = (y - mu) * term.cols[2]
-        total = -0.5 * torch.sum(z * z, dim=-1)
-    elif term.kind == "normal_cutoff":
-        z = (y - mu) * term.cols[2]
-        lp = torch.clamp_min(term.cols[3] - 0.5 * z * z, _CUTOFF_DEFAULT)
-        total = torch.sum(lp * term.cols[4], dim=-1)
-    else:
-        total = torch.sum((y * torch.log(mu) - mu) * term.cols[2], dim=-1)
-    for r, (lo, hi) in term.bounds.items():
+    total = 0.0
+    for t in post.terms:
+        params = {n: positions[:, i, None]
+                  for n, i in zip(t.names, t.pidx_host) if i >= 0}
+        x, y = t.cols[0], t.cols[1]
+        mu = t.base(x, params)                               # (W, N)
+        if t.kind == "normal":
+            z = (y - mu) * t.cols[2]
+            total = total + -0.5 * torch.sum(z * z, dim=-1)
+        elif t.kind == "normal_cutoff":
+            z = (y - mu) * t.cols[2]
+            lp = torch.clamp_min(t.cols[3] - 0.5 * z * z, _CUTOFF_DEFAULT)
+            total = total + torch.sum(lp * t.cols[4], dim=-1)
+        else:
+            total = total + torch.sum((y * torch.log(mu) - mu) * t.cols[2], dim=-1)
+    for r, lo, hi in post.bounds:
         total = total + bound_penalty(positions[:, r], lo, hi)
     return total
 
 
-def fused_posterior_plain(positions, term: FusedTerm):
+def _rest(positions, post: FusedPosterior):
+    """The priors' remainders at ``positions``, in torch; 0 when none."""
+    if not post.rest:
+        return 0.0
+    cols = {k: positions[:, i] for i, k in enumerate(post.keys)}
+    total = 0.0
+    for prior, ds in post.rest:
+        total = total + prior(cols, ds)
+    return total
+
+
+def fused_posterior_plain(positions, post: FusedPosterior):
     """The fused posterior in plain PyTorch (any device)."""
-    return posterior_raw_plain(positions, term) + term.scalar_const
+    return posterior_raw_plain(positions, post) + post.scalar_const + _rest(positions, post)
 
 
-_FUSED_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+_FUSED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
 
 
-def _launch_fused(positions, term: FusedTerm):
-    if positions.dtype != term.dtype or positions.device != term.cols[0].device:
+def _launch_fused(positions, post: FusedPosterior):
+    if positions.dtype != post.dtype or positions.device != post.device:
         raise ValueError(
             f"fused_posterior: positions are {positions.dtype} on "
-            f"{positions.device}, the term is {term.dtype} on "
-            f"{term.cols[0].device}")
-    if positions.ndim != 2 or positions.shape[1] != term.d:
-        raise ValueError(f"fused_posterior: positions must be (W, {term.d}), "
+            f"{positions.device}, the posterior is {post.dtype} on {post.device}")
+    if positions.ndim != 2 or positions.shape[1] != post.d:
+        raise ValueError(f"fused_posterior: positions must be (W, {post.d}), "
                          f"got {tuple(positions.shape)}")
     if not positions.is_contiguous():
         raise ValueError("fused_posterior: positions must be contiguous")
-    if term.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"fused_posterior: no kernel for {term.dtype}")
+    if post.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fused_posterior: no kernel for {post.dtype}")
     lib = load_library("fused_posterior")
     fn = lib.lmt_fused_posterior
     fn.argtypes, fn.restype = _FUSED_ARGTYPES, ctypes.c_int
     W = positions.shape[0]
-    out = torch.empty(W, dtype=term.dtype, device=positions.device)
-    cols = [c.data_ptr() for c in term.cols] + [None] * (5 - len(term.cols))
+    out = torch.empty(W, dtype=post.dtype, device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
-    code = fn(0 if term.dtype == torch.float32 else 1, term.model_id,
-              KIND_IDS[term.kind], positions.data_ptr(), W, term.d,
-              term.pidx.data_ptr(), *cols, term.cols[0].shape[0],
-              term.bflag.data_ptr(), term.blo.data_ptr(), term.bhi.data_ptr(),
+    code = fn(0 if post.dtype == torch.float32 else 1, positions.data_ptr(), W,
+              post.d, len(post.terms), ctypes.addressof(post.meta),
+              ctypes.addressof(post.col_ptrs), post.bcol.data_ptr(),
+              post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
               out.data_ptr(), stream)
     check_launch(lib, code, "fused_posterior")
     fused_posterior.launches += 1
     return out
 
 
-def fused_posterior(positions, term: FusedTerm):
-    """Log-posterior of each walker: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+def fused_posterior(positions, post: FusedPosterior):
+    """Log-posterior of each walker: the CUDA kernel on a CUDA tensor (plus
+    the constant and the priors' remainders in torch), the plain version
+    on a CPU tensor."""
     if positions.device.type == "cpu":
-        return fused_posterior_plain(positions, term)
-    return _launch_fused(positions, term) + term.scalar_const
+        return fused_posterior_plain(positions, post)
+    out = _launch_fused(positions, post) + post.scalar_const
+    return out + _rest(positions, post) if post.rest else out
 
 
 fused_posterior.launches = 0  # kernel launches, for proof that a path used it
 
 
-def build_fused_posterior(terms, spec, dtype):
-    """``positions (W, d) -> (W,)`` through the fused kernel, or None.
+def posterior_rel_err(got, ref, post: FusedPosterior) -> float:
+    """Largest ``|got - ref|`` between two evaluations of ``post``'s
+    posterior, relative to ``max(|ref|, |ref - C|, 1)``, where ``C`` is
+    the whole log-normalisation: the scalar constant (added outside the
+    kernel) plus the cutoff kind's per-point constants (summed inside it).
 
-    None when the fit is outside the kernel's coverage
-    (:func:`kernel_coverage`); the caller then decides.
+    The log-normalisation can cancel the data's misfit to a posterior near
+    0, where ``|ref|`` alone measures nothing but the cancellation;
+    ``|ref - C|`` is the size of the misfit the kernel sums.  Pairs with a
+    non-finite value are left out.
     """
-    term = prepare_fused_terms(terms, spec, dtype)
-    if term is None:
-        return None
-    return lambda positions: fused_posterior(positions, term)
+    got, ref = got.double(), ref.double()
+    finite = torch.isfinite(got) & torch.isfinite(ref)
+    if not bool(finite.any()):
+        return 0.0
+    got, ref = got[finite], ref[finite]
+    norm = post.scalar_const.double()
+    for t in post.terms:
+        if t.kind == "normal_cutoff":
+            norm = norm + torch.sum(t.cols[3].double() * t.cols[4].double())
+    scale = torch.maximum(torch.maximum(ref.abs(), (ref - norm).abs()),
+                          torch.ones_like(ref))
+    return float(((got - ref).abs() / scale).max())
 
 
 # ---------------------------------------------------------------- op census
@@ -276,18 +391,44 @@ def build_fused_posterior(terms, spec, dtype):
 # (csrc/models.cuh).  "flops" are the non-division floating-point adds,
 # multiplies and FMAs, an FMA counted as 2; a division, square root, log,
 # exp or cos/sin is one operation of its own class (sin counts as cos).
-# Compares, selects, min/max and integer work are not counted, so a bound
-# built on the census is a lower bound.
+# Compares, selects, min/max, negations and integer work are not counted,
+# so a bound built on the census is a lower bound.
 
 OP_CLASSES = ("flops", "div", "sqrt", "log", "exp", "cos")
 
-# twin id -> (per walker-point: Model::eval, per walker: Model::setup)
+# twin id -> (per walker-point: Model::eval, per walker: Model::setup).
+# The polynomial (id 3) depends on its coefficient count: model_census.
 _MODEL_CENSUS = {
     # eval: u, u*u, u2+lw2, lw2-u2, c2*(.), c1*u+(.) (FMA), s*s, +bg0,
     # bg1*x+(.) (FMA) = 11 flops, and num/(s*s); setup: lw*lw, three
     # multiplies for c1, two for c2, cos(mix) and sin(mix)
     0: ({"flops": 11, "div": 1}, {"flops": 6, "cos": 2}),
-    1: ({"flops": 2}, {}),  # b + m*x (FMA)
+    1: ({"flops": 2}, {}),                                 # b + m*x (FMA)
+    # eval: a + s*x (FMA); setup: -3*m, b + (.), m - (.), and b/60
+    2: ({"flops": 2}, {"flops": 3, "div": 1}),
+    # eval: x - x0, (.)/sigma, -0.5*z, *z, exp, scale*e+bg0 (FMA),
+    # bg1*x+(.) (FMA)
+    4: ({"flops": 7, "div": 1, "exp": 1}, {}),
+    # eval: x - x0, u*u+lw2 (FMA), num/(.), +bg0, bg1*x+(.) (FMA);
+    # setup: scale*lw, *lw, lw*lw
+    5: ({"flops": 6, "div": 1}, {"flops": 3}),
+    # eval: two of (x - mu, u*u+s2 (FMA), a/(.), and a subtraction);
+    # setup: sigma*sigma, scale1*s2, scale2*s2
+    6: ({"flops": 8, "div": 2}, {"flops": 3}),
+    # eval: -x/tau, exp, scale*e+bg0 (FMA)
+    7: ({"flops": 2, "div": 1, "exp": 1}, {}),
+    # eval: w*x, +phase (rounded apart), sin, scale*s+bg0 (FMA); setup 2pi*freq
+    8: ({"flops": 4, "cos": 1}, {"flops": 1}),
+    # eval: w*x, +phase, sin, -x/tau, exp, scale*e, *osc, +bg0; setup 2pi*freq
+    9: ({"flops": 5, "div": 1, "exp": 1, "cos": 1}, {"flops": 1}),
+    # eval: x/tau, log, beta*lg, exp, exp(-(.)), scale*d+bg0 (FMA)
+    10: ({"flops": 3, "div": 1, "log": 1, "exp": 2}, {}),
+    # eval: log, expo*lg, exp, scale*(.)+bg0 (FMA)
+    11: ({"flops": 3, "log": 1, "exp": 1}, {}),
+    # eval: x - x0, u*u, u2+w2, w2/(.), -ln2*u2, /w2, exp, eta*lor,
+    # one_m_eta*gau+(.) (FMA), scale*(.), +bg0, bg1*x+(.) (FMA);
+    # setup: w*w, 1 - eta
+    12: ({"flops": 11, "div": 2, "exp": 1}, {"flops": 2}),
 }
 # likelihood kind -> (per walker-point: tile_sum, per walker: finish)
 _KIND_CENSUS = {
@@ -295,9 +436,18 @@ _KIND_CENSUS = {
     "normal_cutoff": ({"flops": 7}, {}),          # (y-mu)*is, c-0.5*z*z, acc+lp*mask
     "poisson": ({"flops": 4, "log": 1}, {}),      # y*log(mu)-mu, acc+(.)*mask
 }
-# per bounded parameter per walker: bound_penalty's two distances,
+# per bounds entry per walker: bound_penalty's two distances,
 # 1e-5*dist, exp, -1, *-1e10, and prior += (.)
 _BOUND_CENSUS = {"flops": 6, "exp": 1}
+
+
+def model_census(model_id: int, n_params: int | None = None) -> tuple[dict, dict]:
+    """``(per walker-point, per walker)`` operations of one twin; the
+    polynomial's Horner step (a multiply and an add, rounded apart) runs
+    once per coefficient after the leading one."""
+    if model_id == 3:
+        return {"flops": 2 * (n_params - 1)}, {}
+    return _MODEL_CENSUS[model_id]
 
 
 def _classes(*parts):
@@ -317,21 +467,38 @@ def op_census(per_point=(), per_walker=(), per_step=()) -> dict:
             "per_step": _classes(dict(per_step))}
 
 
-def fused_census(model_id: int, kind: str, n_bounded: int = 0) -> dict:
-    """Operations of one fused-posterior evaluation, by class.
+def fused_census(model_id: int, kind: str, n_bounded: int = 0,
+                 n_params: int | None = None) -> dict:
+    """Operations of one single-term fused-posterior evaluation, by class.
 
     ``{"per_point": ..., "per_walker": ..., "per_step": ...}``, each a dict
     over :data:`OP_CLASSES`: per walker-point (model and reduction), per
-    walker (model setup, finish, ``total + prior`` and ``n_bounded``
-    bound penalties) and, for the chunk stepper, per walker-step beyond
-    the posterior (zero here).
+    walker (model setup, finish, ``total + term`` and ``n_bounded`` bound
+    penalties) and, for the chunk stepper, per walker-step beyond the
+    posterior (zero here).  ``n_params``: the polynomial's coefficients.
     """
-    point_m, walker_m = _MODEL_CENSUS[model_id]
+    point_m, walker_m = model_census(model_id, n_params)
     point_k, walker_k = _KIND_CENSUS[kind]
     return op_census(per_point=_classes(point_m, point_k),
                      per_walker=_classes(walker_m, walker_k, {"flops": 1},
                                          {c: n_bounded * n
                                           for c, n in _BOUND_CENSUS.items()}))
+
+
+def posterior_census(post: FusedPosterior) -> dict:
+    """The census of one evaluation of a posterior of any number of terms.
+
+    Its ``per_point`` row already sums every term's points (term t's
+    per-point row times its N), so count it with ``N = 1``.  The priors'
+    remainders run in torch beside the kernel and are not counted.
+    """
+    point, walker = {}, {}
+    for t in post.terms:
+        c = fused_census(t.model_id, t.kind, n_params=len(t.pidx_host))
+        point = _classes(point, {k: t.n * v for k, v in c["per_point"].items()})
+        walker = _classes(walker, c["per_walker"])
+    walker = _classes(walker, {c: len(post.bounds) * n for c, n in _BOUND_CENSUS.items()})
+    return op_census(per_point=point, per_walker=walker)
 
 
 def census_totals(census: dict, W: int, N: int, steps: int = 1) -> dict:
@@ -383,8 +550,9 @@ def opmix_bound_ms(census: dict, W: int, N: int, steps: int,
     return 1e3 * sum(n / rates[c] for c, n in totals.items() if n)
 
 
-def fused_bytes(term: FusedTerm, W: int) -> int:
-    """Bytes one evaluation must move: positions in, the data columns
-    once, the posterior out."""
-    size = term.cols[0].element_size()
-    return size * (W * term.d + len(term.cols) * term.cols[0].shape[0] + W)
+def fused_bytes(post: FusedPosterior, W: int) -> int:
+    """Bytes one evaluation must move: positions in, every term's data
+    columns once, the posterior out."""
+    size = post.terms[0].cols[0].element_size()
+    data = sum(len(t.cols) * t.n for t in post.terms)
+    return size * (W * post.d + data + W)

@@ -53,8 +53,8 @@ from .kernel import FitConfig
 from .models import lorder_mixed_bg
 from .ops.chunk_kernel import chunk_bytes, chunk_census
 from .ops.loglik_kernel import (census_totals, class_rates, fused_bytes,
-                                fused_census, fused_posterior, opmix_bound_ms,
-                                prepare_fused_terms)
+                                fused_posterior, opmix_bound_ms,
+                                posterior_census, prepare_fused_terms)
 from .ops.microbench import (CHAINS, FLOPS_PER_OP, OPS, UNROLL, chain_probe,
                              sm_clock_mhz)
 
@@ -229,9 +229,9 @@ def _chunk_seconds(walker, chunks: int) -> float:
     return (time.perf_counter() - t0) / chunks
 
 
-def _repeat_fused(pos, term, K):
+def _repeat_fused(pos, post, K):
     for _ in range(K):
-        out = fused_posterior(pos, term)
+        out = fused_posterior(pos, post)
     return out
 
 
@@ -251,10 +251,10 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
 
     w = walker()
     dtype, d, chunk = w.dtype, w.ndim, w.config.chunk_size
-    term = prepare_fused_terms(w.terms, w.spec, dtype)
-    if term is None:
+    post = prepare_fused_terms(w.terms, w.spec, dtype)
+    if post is None:
         raise ValueError("roofline: the fit is outside the fused kernel's coverage")
-    n_pts = term.cols[0].shape[0]
+    n_pts = sum(t.n for t in post.terms)
 
     # ---- achieved chunk time of both runners
     chunk_t = _chunk_seconds(w, chunks)
@@ -262,7 +262,7 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
     chunk_kernel_t = _chunk_seconds(wk, chunks)
 
     # ---- pure likelihood time by the K-difference
-    lik_rate, _ = chain_rate(lambda K: (_repeat_fused, w.state.position, term, K),
+    lik_rate, _ = chain_rate(lambda K: (_repeat_fused, w.state.position, post, K),
                              1, k1=8, k2=64)
     lik_t = 1.0 / lik_rate
 
@@ -270,17 +270,18 @@ def main(data=None, walkers: int = 131072, device=None) -> dict:
     card = _card() if dev.type == "cuda" else None
     rates = class_rates(ceil, take_out_add=dev.type == "cuda")
 
-    # ---- the census and the bounds of both kernels
-    fc = fused_census(term.model_id, term.kind, len(term.bounds))
-    cc = chunk_census(term.model_id, term.kind, d, len(term.bounds))
-    step_ops = census_totals(cc, walkers, n_pts, 1)
-    chunk_nbytes = chunk_bytes(term, walkers, chunk)
+    # ---- the census and the bounds of both kernels (the posterior's
+    # census sums every point already: N = 1)
+    fc = posterior_census(post)
+    cc = chunk_census(fc, d)
+    step_ops = census_totals(cc, walkers, 1, 1)
+    chunk_nbytes = chunk_bytes(post, walkers, chunk)
     kernels = {}
     for name, census, steps, ms, nbytes in (
-            ("fused_posterior", fc, 1, lik_t * 1e3, fused_bytes(term, walkers)),
+            ("fused_posterior", fc, 1, lik_t * 1e3, fused_bytes(post, walkers)),
             ("chunk_rwm", cc, chunk, chunk_kernel_t * 1e3, chunk_nbytes)):
-        peak = peak_bound(census, walkers, n_pts, steps, nbytes, dtype)
-        opmix = opmix_bound_ms(census, walkers, n_pts, steps, rates)
+        peak = peak_bound(census, walkers, 1, steps, nbytes, dtype)
+        opmix = opmix_bound_ms(census, walkers, 1, steps, rates)
         kernels[name] = {"ms": ms, "opmix_bound_ms": opmix, "opmix_share": opmix / ms,
                          "peak_bound_ms": peak["bound_ms"],
                          "peak_bound_by": peak["bound_by"],

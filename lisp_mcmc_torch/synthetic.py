@@ -1,0 +1,173 @@
+"""Synthetic data for the journeys past the flagship, made from a seed.
+
+The reference's data files are not in the repository, so the global fit
+of test.lisp:52-78 and the NV pipeline of nv-specific.lisp fit data
+generated here with numpy (the flagship's own is
+``roofline.synthetic_flagship``):
+
+- :func:`global_fit`: test.lisp's global fit of several 334-point
+  datasets that share ``linewidth``, ``x0`` and ``mix``; dataset 1 is the
+  flagship's (model ``lorder_mixed_bg``, its printed parameters with scale
+  x10), dataset k > 1 comes from ``lorder_mixed_bg`` renamed to read
+  ``scale{k}``, ``bg0{k}`` and ``bg1{k}`` (test.lisp's
+  ``lorder-mixed-bg2``), all with sigma = 1e-7 noise.  Dataset 2's own
+  parameters stand to test.lisp's start for them (scale2 1e-8, bg02 1e-7,
+  bg12 1e-10) as dataset 1's printed ones stand to its start (scale 1e-6,
+  bg0 1e-7, bg1 1e-10), scale x10 as in the flagship: its resonance is a
+  hundredth of dataset 1's, on the same background;
+- :func:`nv_spectra`: ODMR spectra of ``double_lorentzian_bg`` on a
+  401-point grid over 2840-2900 MHz, with dips 20x the noise;
+- :func:`twin_case`: a fit of each zoo model, for holding its CUDA twin
+  against the plain model;
+- :func:`dense_l`: a dense proposal factor for holding the chunk kernel
+  against its plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models import DEVICE_MODELS, double_lorentzian_bg, lorder_mixed_bg, renamed
+from .roofline import FLAGSHIP, N_POINTS
+
+__all__ = ["dense_l", "global_fit", "nv_spectra", "NV_SPECTRA", "TWIN_PARAMS",
+           "twin_case", "write_nv_file"]
+
+# test.lisp:58-70's starting point; datasets past the second start as it.
+_GLOBAL_START = {"scale": 1e-6, "linewidth": 100.0, "x0": 2700.0, "mix": 0.1,
+                 "bg0": 1e-7, "bg1": 1e-10}
+_OWN_START = {"scale": 1e-8, "bg0": 1e-7, "bg1": 1e-10}
+# each further dataset's own scale and background, relative to dataset 1's
+_OWN_FACTORS = ((0.01, 1.0, 1.0), (0.75, -2.0, 0.5), (1.25, 0.5, 2.0),
+                (0.5, -1.0, -0.5), (0.6, 2.5, 1.5), (1.1, -0.3, -2.0),
+                (0.9, 1.2, 0.8))
+
+
+def _own(name: str, k: int) -> str:
+    return name if k == 1 else f"{name}{k}"
+
+
+def global_fit(n_datasets: int = 2, seed: int = 0, n_points: int = N_POINTS) -> dict:
+    """test.lisp's global fit over ``n_datasets`` (2 to 8) synthetic datasets.
+
+    Returns ``{"functions", "data", "truth", "start"}``: the models (the
+    flagship's, then renamed ones), ``[(x, y_k)]``, the generating
+    parameters and test.lisp's starting point (d = 3 + 3 n_datasets).
+    At the default ``n_points``, dataset 1 equals
+    ``roofline.synthetic_flagship(seed)``.
+    """
+    if not 2 <= n_datasets <= 1 + len(_OWN_FACTORS):
+        raise ValueError(f"global_fit: 2 to {1 + len(_OWN_FACTORS)} datasets, "
+                         f"got {n_datasets}")
+    x = np.linspace(2000.0, 3600.0, n_points)
+    rng = np.random.default_rng(seed)
+    functions, data = [], []
+    truth, start = dict(FLAGSHIP), dict(_GLOBAL_START)
+    for k in range(1, n_datasets + 1):
+        if k == 1:
+            fn = lorder_mixed_bg
+        else:
+            fs, fb0, fb1 = _OWN_FACTORS[k - 2]
+            truth.update({_own("scale", k): FLAGSHIP["scale"] * fs,
+                          _own("bg0", k): FLAGSHIP["bg0"] * fb0,
+                          _own("bg1", k): FLAGSHIP["bg1"] * fb1})
+            start.update({_own(n, k): v for n, v in _OWN_START.items()})
+            fn = renamed(lorder_mixed_bg, {n: _own(n, k) for n in ("scale", "bg0", "bg1")},
+                         name=f"lorder_mixed_bg{k}")
+        p = {n: torch.tensor(v, dtype=torch.float64) for n, v in truth.items()}
+        y = fn(torch.tensor(x), p).numpy()
+        functions.append(fn)
+        data.append((x, y + 1e-7 * rng.standard_normal(n_points)))
+    return {"functions": functions, "data": data, "truth": truth, "start": start}
+
+
+# Three spectra's generating parameters: dips in make_nv_prior's boxes
+# (mu1 in 2850-2870, mu2 in 2870-2890 MHz, sigma in 9-20), 14-20 MHz
+# apart, scale ratios inside 0.9-1.1, depth 0.02 on a background of 1.
+NV_SPECTRA = (
+    {"scale1": 0.020, "scale2": 0.020, "mu1": 2857.0, "mu2": 2877.0, "sigma": 10.0, "bg0": 1.0},
+    {"scale1": 0.021, "scale2": 0.020, "mu1": 2860.0, "mu2": 2874.0, "sigma": 10.0, "bg0": 1.0},
+    {"scale1": 0.020, "scale2": 0.019, "mu1": 2862.5, "mu2": 2881.0, "sigma": 10.0, "bg0": 1.0},
+)
+NV_NOISE = 0.001   # the dips are 20x the noise
+
+
+def nv_spectra(seed: int = 0):
+    """``(x, [y_1, y_2, y_3])``: :data:`NV_SPECTRA` on 401 points over
+    2840-2900 MHz plus Gaussian noise of :data:`NV_NOISE`."""
+    x = np.linspace(2840.0, 2900.0, 401)
+    rng = np.random.default_rng(seed)
+    ys = []
+    for truth in NV_SPECTRA:
+        p = {n: torch.tensor(v, dtype=torch.float64) for n, v in truth.items()}
+        y = double_lorentzian_bg(torch.tensor(x), p).numpy()
+        ys.append(y + NV_NOISE * rng.standard_normal(x.shape[0]))
+    return x, ys
+
+
+def write_nv_file(path, seed: int = 0):
+    """Write :func:`nv_spectra` as a ';'-delimited file (frequency, then one
+    column per spectrum), the layout ``nv.fit_nv_file`` reads."""
+    x, ys = nv_spectra(seed)
+    with open(path, "w") as f:
+        for i in range(x.shape[0]):
+            f.write(";".join(repr(float(c[i])) for c in (x, *ys)) + "\n")
+    return path
+
+
+# Parameters of each zoo model on x in 0.5-3: every feature (peaks, dips,
+# decays, a few oscillations) inside the grid.
+TWIN_PARAMS = {
+    "line": {"b": 1.0, "m": 2.0},
+    "example_line": {"b": 30.0, "m": 2.0},
+    "polynomial": {"c0": 5.0, "c1": 1.0, "c2": -0.5, "c3": 0.2},
+    "gaussian_peak": {"scale": 4.0, "x0": 1.5, "sigma": 0.4, "bg0": 1.0, "bg1": 0.2},
+    "lorentzian_bg": {"scale": 4.0, "linewidth": 0.3, "x0": 1.6, "bg0": 1.0, "bg1": 0.2},
+    "lorder_mixed_bg": {"scale": 2.0, "linewidth": 0.4, "x0": 1.7, "mix": 0.7,
+                        "bg0": 3.0, "bg1": 0.1},
+    "double_lorentzian_bg": {"scale1": 1.0, "scale2": 1.2, "mu1": 1.2, "mu2": 2.2,
+                             "sigma": 0.2, "bg0": 3.0},
+    "exponential_decay": {"scale": 5.0, "tau": 1.1, "bg0": 0.5},
+    "sinusoid": {"scale": 2.0, "freq": 1.3, "phase": 0.4, "bg0": 3.0},
+    "damped_sinusoid": {"scale": 2.0, "tau": 1.5, "freq": 1.3, "phase": 0.4, "bg0": 3.0},
+    "stretched_exponential": {"scale": 4.0, "tau": 1.2, "beta": 0.7, "bg0": 0.5},
+    "power_law": {"scale": 2.0, "exponent": 1.5, "bg0": 0.5},
+    "pseudo_voigt": {"scale": 4.0, "x0": 1.5, "w": 0.3, "eta": 0.4, "bg0": 1.0, "bg1": 0.2},
+}
+
+
+def twin_case(model, optional: bool = True, n_points: int = 120, seed: int = 0):
+    """A fit of one zoo model: ``(x, y, params, kinds)``.
+
+    ``params`` are :data:`TWIN_PARAMS` (without the twin's optional ones
+    when ``optional`` is False); y is the model plus noise of 1 % of its
+    peak; ``kinds`` the likelihoods it takes: normal and normal_cutoff,
+    and poisson where the model's mean is positive (y then rounded to
+    counts by the caller).
+    """
+    x = np.linspace(0.5, 3.0, n_points)
+    twin = DEVICE_MODELS[model]
+    params = {k: v for k, v in TWIN_PARAMS[model.__name__].items()
+              if optional or k not in twin.optional}
+    p = {k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()}
+    mu = model(torch.tensor(x), p).numpy()
+    y = mu + 0.01 * np.abs(mu).max() * np.random.default_rng(seed).standard_normal(n_points)
+    kinds = ["normal", "normal_cutoff"] + (["poisson"] if mu.min() > 0 else [])
+    return x, y, params, kinds
+
+
+def dense_l(scales, seed: int = 0) -> torch.Tensor:
+    """A dense lower-triangular proposal factor, float32: the Cholesky
+    factor of a covariance whose standard deviations are ``|scales|`` and
+    whose correlations are random (seeded; a median size of 0.15 to 0.25
+    at d = 6 to 18).  Its accepted steps' outer products have off-diagonal sums of the
+    size of ``sqrt(m_ii m_jj)``, so a kernel that reads L transposed,
+    misplaces an entry of the moments or drops their off-diagonal is off
+    by that much; a diagonal L hides all three.
+    """
+    s = np.abs(np.asarray(scales, dtype=np.float64))
+    a = np.random.default_rng(seed).standard_normal((s.shape[0], s.shape[0]))
+    c = a @ a.T + np.eye(s.shape[0])
+    c = c / np.sqrt(np.outer(np.diag(c), np.diag(c)))
+    return torch.tensor(np.linalg.cholesky(c * np.outer(s, s)), dtype=torch.float32)

@@ -19,6 +19,7 @@ import lisp_mcmc_tpu as jfit
 import lisp_mcmc_torch as tfit
 from lisp_mcmc_torch.convert import dataset_from_numpy
 from lisp_mcmc_torch.fit import _Term
+from lisp_mcmc_torch.ops import chunk_kernel as tck
 from lisp_mcmc_torch.ops import loglik_kernel as tlk
 from lisp_mcmc_tpu import likelihoods as jlik
 from lisp_mcmc_tpu.models import line as j_line
@@ -94,13 +95,13 @@ def test_plain_fused_matches_jax_interpret(case):
     jw, terms, spec = _pair(case)
     j_fused = build_fused_posterior(jw.terms, jw.spec, jnp.float64, W,
                                     block_walkers=128, interpret=True)
-    term = tlk.prepare_fused_terms(terms, spec, torch.float64)
-    assert j_fused is not None and term is not None
+    post = tlk.prepare_fused_terms(terms, spec, torch.float64)
+    assert j_fused is not None and post is not None
     rng = np.random.default_rng(10)
     base = np.asarray(jw.state.position)
     pos = base * (1.0 + 0.05 * rng.standard_normal(base.shape))  # some out of bounds
     want = np.asarray(j_fused(jnp.asarray(pos)))
-    got = tlk.fused_posterior(torch.as_tensor(pos), term).numpy()
+    got = tlk.fused_posterior(torch.as_tensor(pos), post).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-9,
                                err_msg=f"{case}: plain fused vs JAX interpret, rtol 1e-9")
     # ... and both equal the unfused posterior of each package
@@ -127,12 +128,15 @@ def _line_walker(**kw):
 
 
 def test_declines_outside_coverage():
+    """The fused kernel refuses what the Pallas kernel refuses (a custom
+    likelihood, multi-column x) and a model without a twin; a bounds
+    table with extra and a fit of several terms are inside it."""
     def custom(fn, params, dataset):
         mu = fn(dataset.x, params)
         return -torch.sum(torch.abs(dataset.y - mu) * dataset.mask, dim=-1)
 
     w = _line_walker(log_likelihood=custom)
-    assert tlk.build_fused_posterior(w.terms, w.spec, w.dtype) is None
+    assert tlk.prepare_fused_terms(w.terms, w.spec, w.dtype) is None
     assert "custom likelihood" in tlk.kernel_coverage(w.terms, w.spec)
 
     def quadratic(x, p):
@@ -142,12 +146,19 @@ def test_declines_outside_coverage():
     wq = tfit.walker_create(function=quadratic, data=(x, x), params={"a": 1.0},
                             n_walkers=128, device="cpu")
     assert "no CUDA twin" in tlk.kernel_coverage(wq.terms, wq.spec)
+    wx = tfit.walker_create(function=lambda xs, p: p["b"] + p["m"] * xs[..., 0],
+                            data=(x, x, x), params={"m": 1.0, "b": 0.5},
+                            n_walkers=128, device="cpu")
+    assert "multi-column x" in tlk.kernel_coverage(wx.terms, wx.spec)
     wp = _line_walker(log_prior=tfit.make_bounds_prior(
         {"m": (0.0, 2.0)}, extra=lambda p, pen, ds: 0.0))
-    assert "prior" in tlk.kernel_coverage(wp.terms, wp.spec)
+    assert tlk.kernel_coverage(wp.terms, wp.spec) is None
+    assert "bounds table alone" in tck.chunk_coverage(wp.terms, wp.spec, wp.config,
+                                                      128, torch.float32)
     w2 = tfit.walker_create(function=[t_line, t_line], data=[(x, x), (x, 2 * x)],
                             params={"m": 1.0, "b": 0.5}, n_walkers=128, device="cpu")
-    assert "2 posterior terms" in tlk.kernel_coverage(w2.terms, w2.spec)
+    assert tlk.kernel_coverage(w2.terms, w2.spec) is None
+    assert tck.chunk_coverage(w2.terms, w2.spec, w2.config, 128, torch.float32) is None
 
 
 def test_forced_kernel_outside_coverage_raises():

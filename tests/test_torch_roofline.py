@@ -32,7 +32,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import lisp_mcmc_torch as tfit
 from lisp_mcmc_torch import roofline
-from lisp_mcmc_torch.models import line, lorder_mixed_bg
+from lisp_mcmc_torch.models import DEVICE_MODELS, line, lorder_mixed_bg
 from lisp_mcmc_torch.ops import chunk_kernel as tck
 from lisp_mcmc_torch.ops import loglik_kernel as tlk
 from lisp_mcmc_torch.ops import microbench as tmb
@@ -178,30 +178,67 @@ def _count(model, names, W, N):
     return mode.n
 
 
-@pytest.mark.parametrize("model", [lorder_mixed_bg, line])
+def _twin_names(model):
+    twin = DEVICE_MODELS[model]
+    return twin, (("c0", "c1", "c2", "c3") if twin.names is None else twin.names)
+
+
+# Where a plain model's dispatched operations differ from its twin's
+# census by design, per (walker, point) and class: the polynomial starts
+# from ``zeros + c_last`` (an add) where the twin starts from the leading
+# coefficient; stretched_exponential negates its masked power as an op of
+# its own, where the twin's negation is part of its exp's argument; the
+# plain power_law takes the log of the masked x once per point for every
+# walker, the twin once per walker-point.
+_BY_DESIGN = {"polynomial": {"flops": 1}, "stretched_exponential": {"flops": 1},
+              "power_law": {"log": -1}}
+
+
+@pytest.mark.parametrize("model", sorted(DEVICE_MODELS, key=lambda f: f.__name__),
+                         ids=lambda f: f.__name__)
 def test_model_census_matches_the_plain_models_operations(model):
     """The plain models compute the twins' factored form, one separate
     multiply or add per flop, so their dispatched elements per (walker,
-    point) and per walker equal the twin's census."""
-    from lisp_mcmc_torch.models.zoo import DEVICE_MODELS
-
-    model_id, names = DEVICE_MODELS[model]
-    c = tlk.fused_census(model_id, "normal")
+    point) and per walker equal the twin's census, but for the differences
+    :data:`_BY_DESIGN` names.  A mixed difference over two walker counts
+    and two point counts leaves out what the plain model computes once
+    for all walkers (``-x`` of the decays)."""
+    twin, names = _twin_names(model)
+    c = tlk.fused_census(twin.id, "normal", n_params=len(names))
     kind_point, kind_walker = tlk._KIND_CENSUS["normal"]
-    W, n1, n2 = 3, 5, 9
-    a, b = _count(model, names, W, n1), _count(model, names, W, n2)
+    (w1, w2), (n1, n2) = (3, 5), (5, 9)
+    cnt = {(w, n): _count(model, names, w, n) for w in (w1, w2) for n in (n1, n2)}
+    design = _BY_DESIGN.get(model.__name__, {})
     for cls in tlk.OP_CLASSES:
-        per_point = (b[cls] - a[cls]) / (W * (n2 - n1))
-        per_walker = a[cls] / W - n1 * per_point
-        assert per_point == c["per_point"][cls] - kind_point.get(cls, 0), cls
-        # the census's per-walker row also holds the finish and total + prior
+        per_point = (cnt[w2, n2][cls] - cnt[w1, n2][cls] - cnt[w2, n1][cls]
+                     + cnt[w1, n1][cls]) / ((w2 - w1) * (n2 - n1))
+        per_walker = (cnt[w2, n1][cls] - cnt[w1, n1][cls]) / (w2 - w1) - n1 * per_point
+        assert per_point == (c["per_point"][cls] - kind_point.get(cls, 0)
+                             + design.get(cls, 0)), cls
+        # the census's per-walker row also holds the finish and total + term
         assert per_walker == (c["per_walker"][cls] - kind_walker.get(cls, 0)
                               - (cls == "flops")), cls
 
 
+def test_posterior_census_sums_the_terms():
+    """A two-term posterior's census (N = 1) is the sum of its terms'
+    single-term censuses at their own N, plus its bounds entries."""
+    x = np.linspace(1.0, 2.0, 40)
+    prior = tfit.make_bounds_prior({"m": (0.0, 5.0), "b": (-1.0, 3.0)})
+    w = tfit.walker_create(function=[lorder_mixed_bg, line],
+                           data=[(x, x), (x[:25], x[:25])],
+                           params={**roofline.START, "m": 1.0, "b": 0.5},
+                           log_prior=[None, prior], n_walkers=4, device="cpu")
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    got = tlk.census_totals(tlk.posterior_census(post), 7, 1, 3)
+    a = tlk.census_totals(tlk.fused_census(0, "normal"), 7, 40, 3)
+    b = tlk.census_totals(tlk.fused_census(1, "normal", n_bounded=2), 7, 25, 3)
+    assert got == {c: a[c] + b[c] for c in tlk.OP_CLASSES}
+
+
 @pytest.mark.parametrize("d", [1, 2, 6, 8])
 def test_chunk_census_scales_with_d(d):
-    c = tck.chunk_census(0, "normal", d)
+    c = tck.chunk_census(tlk.fused_census(0, "normal"), d)
     assert c["per_point"] == tlk.fused_census(0, "normal")["per_point"]
     assert c["per_walker"] == tlk.fused_census(0, "normal")["per_walker"]
     totals = tlk.census_totals(c, 10, 334, steps=200)
@@ -209,7 +246,7 @@ def test_chunk_census_scales_with_d(d):
     assert totals["div"] == 200 * 10 * (334 + 1)
     # one more parameter adds a Box-Muller draw (a log, a cos, a square
     # root) and a row of L z and of the moments: flops grow with d^2
-    more = tck.chunk_census(0, "normal", d + 1)["per_step"]
+    more = tck.chunk_census(tlk.fused_census(0, "normal"), d + 1)["per_step"]
     assert {k: more[k] - c["per_step"][k] for k in ("log", "cos", "sqrt", "div")} \
         == {"log": 1, "cos": 1, "sqrt": 1, "div": 0}
     assert more["flops"] - c["per_step"]["flops"] == 4 * d + 11
@@ -255,11 +292,11 @@ def test_chunk_census_matches_the_plain_chunks_operations(model):
             st.best_logprob[:W], L, 0, 0.0, 7))
 
     def post_ops(W):
-        return ops(lambda: tlk.posterior_raw_plain(st.position[:W], ck.term))
+        return ops(lambda: tlk.posterior_raw_plain(st.position[:W], ck.post))
 
     c = {(W, n): chunk_ops(W, n) for W in (128, 256) for n in (1, 3)}
     p = {W: post_ops(W) for W in (128, 256)}
-    want = tck.chunk_census(ck.term.model_id, ck.term.kind, d)["per_step"]
+    want = tck.chunk_census(tlk.posterior_census(ck.post), d)["per_step"]
     by_design = {"flops": 2 + 5 - (d * d - d), "cos": 1}
     for cls in tlk.OP_CLASSES:
         step = (c[256, 3][cls] - c[128, 3][cls] - c[256, 1][cls] + c[128, 1][cls]) / (128 * 2)
