@@ -18,7 +18,8 @@ an H100) and the CUDA toolkit.  It
    float32 and float64, with a flat and a bounds prior, and times both;
 5. holds the whole-chunk rwm kernel against its plain version for one
    200-step chunk at W = 131072 from the same state, seed and dense L
-   (``synthetic.dense_l``), and times both;
+   (``synthetic.dense_l``), and times both; reports its block size,
+   blocks per SM and waves (``chunk_kernel.chunk_plan``) and registers;
 6. ``twins``: the fused kernel against its plain version at W = 131072,
    N = 334 for each of the 13 zoo twins, with and without their optional
    parameters, for every likelihood kind (Poisson where the model's mean
@@ -30,20 +31,25 @@ an H100) and the CUDA toolkit.  It
    step), then the journey through ``mcmc_fit`` on the default path and through
    ``adaptive_steps(collect_history=False)`` on
    ``posterior_impl="chunk_kernel"``, each held to the flagship's gates;
-8. ``chunk_wide``: the chunk kernel's runtime-d variant against its plain
-   version on a five-dataset global fit (d = 18) at W = 131072;
+8. ``chunk_wide``: the chunk kernel against its plain version on a
+   five-dataset global fit (d = 18) at W = 131072;
 9. runs the flagship journey on the default path (fused kernel per step):
    ``walker_create`` + ``adaptive_steps(30000, temperature=10)`` with
    history, then ``most_likely_step`` and ``ess_from_history``;
 10. runs the journey again with ``posterior_impl="chunk_kernel"``
     (``adaptive_steps(10000, collect_history=False)``);
 11. ``nv``: ``nv.fit_nv_file`` on a ';'-delimited file of three synthetic
-    spectra with W = 131072, one spectrum after another, the NV
-    constraints in torch beside the fused kernel; gates on mu1, mu2, the
-    field offset and the acceptance;
-12. profiles two chunks of the default path (wall clock, device time by
+    spectra with W = 131072, one spectrum after another, the NV prior's
+    bounds and declared constraints inside the fused kernel (nothing left
+    for torch); gates on mu1, mu2, the field offset and the acceptance;
+12. ``nv_chunk``: the chunk kernel against its plain version on the NV
+    fit (its constraints in the kernel), then the same three spectra as a
+    ``WalkerSet`` of ``nv.nv_walker`` on ``posterior_impl="chunk_kernel"``,
+    ``adaptive_steps(40000, collect_history=False)``, held to the ``nv``
+    gates;
+13. profiles two chunks of the default path (wall clock, device time by
     kernel, the device's busy share);
-13. prints the ``kernels`` summary line (each kernel's time, launches on
+14. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times), the card line and, last,
     ``{"ok": true, "device": {...}}``.
@@ -159,37 +165,17 @@ def _nvcc():
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _ptxas_table(log):
-    """``{kernel: {registers, stack, spill_stores, spill_loads}}`` from one
-    ``-Xptxas=-v`` log (device functions without a register line left out)."""
-    import re
-
-    table, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", ln)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m and name:
-            table[name] = dict(zip(("stack", "spill_stores", "spill_loads"),
-                                   map(int, m.groups())))
-            continue
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name in table:
-            table[name]["registers"] = int(m.group(1))
-    return {k: v for k, v in table.items() if "registers" in v}
-
-
 def phase_build():
-    from lisp_mcmc_torch.device import build_all
+    """Build every kernel library, one nvcc each, all at once; returns
+    each library's ptxas table (registers, stack, spills per kernel)."""
+    from lisp_mcmc_torch.device import KERNEL_SOURCES, build_all, build_log, ptxas_table
 
     t0 = time.perf_counter()
     logs = build_all()
     secs = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": secs, "built": sorted(logs),
-          "ptxas": {name: _ptxas_table(log) for name, log in logs.items()}})
+    ptxas = {name: ptxas_table(build_log(name)) for name in KERNEL_SOURCES}
+    emit({"phase": "build", "seconds": secs, "built": sorted(logs), "ptxas": ptxas})
+    return ptxas
 
 
 def _sass_fma_counts():
@@ -405,29 +391,49 @@ def _bounds(census, steps, nbytes, ceilings):
 
 
 # The chunk kernel's accepted-move moments against its plain version's,
-# entry by entry relative to sqrt(m_ii m_jj).  Only the walkers that
-# disagree (<= 1 %, in practice 0.1 %) take other steps; with a diagonal L
-# they moved the moments by 2e-5 at most (NVIDIA H100 80GB HBM3, 700 W).
-# With synthetic.dense_l the off-diagonal entries are signal, of a median
-# size above 10x this tolerance (checked), so a misplaced or dropped entry
-# fails.
+# entry by entry relative to sqrt(m_ii m_jj) (m_sum: sqrt(m_ii), after
+# taking out the end-position difference of the walkers that disagree).
+# Only the walkers that disagree (<= 1 %, in practice 0.1 %) take other
+# steps; with a diagonal L they moved the moments by 2e-5 at most (NVIDIA
+# H100 80GB HBM3, 700 W).  With synthetic.dense_l the off-diagonal entries
+# are signal, of a median size above 10x this tolerance (checked), so a
+# misplaced or dropped entry fails.
 MOMENT_RTOL = 5e-3
+# Of the walkers that agree, the share whose best point matches the plain
+# version's at rtol 1e-4: a new logprob within rounding of the walker's
+# best can flip the best-tracking test (0.99978-0.99996 at the five chunk
+# checks, NVIDIA H100 80GB HBM3, 700 W).  Every walker's best point is
+# also held to its own best logprob (the plain posterior there, RTOL
+# float32), which a stale or misplaced best point fails.
+BEST_AGREEMENT = 0.999
+# The per-step trace (max, mean and min over all walkers) against the plain
+# version's, by posterior_rel_err: the walkers that disagree move it (by
+# 8e-8 to 4.5e-7 at the five chunk checks, same card).
+TRACE_RTOL = 1e-4
+# The trace's last step against the max, mean and min of the kernel's own
+# final logprob: max and min exactly, the mean to float32 summation.
+TRACE_LAST_RTOL = 1e-5
 
 
 def _chunk_check(ck, state, L, what):
     """One 200-step chunk of the kernel against its plain version from the
     same state, L (dense: ``synthetic.dense_l``) and seed at anneal step
-    1000; returns the measurements.
+    1000; returns the measurements (``chunk_kernel.chunk_diff``).
 
     A walker agrees when its accept count and its final position match
     (rtol 1e-4): one near-tie flip, from a 1-ulp difference of logf/cosf,
     sends a walker down another path, and at W = 131072 a few such paths
-    end with equal counts but other positions.  At least 99 % must agree.
-    A kernel that read L transposed would propose other steps everywhere.
-    The moments are held to :data:`MOMENT_RTOL`.
+    end with equal counts but other positions.  At least 99 % must agree,
+    and on those the logprob and best logprob are held to the fused
+    kernel's RTOL float32 (``posterior_rel_err``) and the best point to
+    :data:`BEST_AGREEMENT`.  A kernel that read L transposed would propose
+    other steps everywhere.  Every walker's best point must give its best
+    logprob, which is no lower than its logprob.  The moments are held to
+    :data:`MOMENT_RTOL`, the trace to :data:`TRACE_RTOL` and
+    :data:`TRACE_LAST_RTOL`.
     """
     import torch
-    from lisp_mcmc_torch.ops.chunk_kernel import chunk_rwm, chunk_rwm_plain
+    from lisp_mcmc_torch.ops.chunk_kernel import chunk_diff, chunk_rwm, chunk_rwm_plain
 
     seed = torch.tensor([20240607], dtype=torch.int32, device=DEVICE)
     args = (state.position, state.logprob, state.best_position, state.best_logprob,
@@ -435,38 +441,53 @@ def _chunk_check(ck, state, L, what):
     got = chunk_rwm(ck, *args)
     ref = chunk_rwm_plain(ck, *args)
     torch.cuda.synchronize()
-    same_count = got["accept_counts"] == ref["accept_counts"]
-    walker_rel = ((got["position"] - ref["position"]).abs()
-                  / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
-    same = same_count & (walker_rel <= 1e-4)
-    agree = float(same.float().mean())
+    diff = chunk_diff(got, ref, ck.post)
     rate = float(got["accept_counts"].mean()) / ck.chunk
-    check(agree >= 0.99, f"{what}: {agree} of walkers agree in accept count and "
+    rtol = RTOL["float32"]
+    check(diff["walker_agreement"] >= 0.99,
+          f"{what}: {diff['walker_agreement']} of walkers agree in accept count and "
           "position (rtol 1e-4); need >= 0.99")
     check(0.05 < rate < 0.95, f"{what}: uninformative acceptance {rate}")
     check(float(got["m_count"]) == float(got["accept_counts"].sum()),
           f"{what}: m_count != sum of accept counts")
     check(bool(torch.isfinite(got["logprob"]).all()), f"{what}: non-finite logprob")
-    diag = ref["m_outer"].diagonal()
-    scale = (diag[:, None] * diag[None, :]).sqrt()
-    off = ~torch.eye(ck.d, dtype=torch.bool, device=scale.device)
-    signal = float((ref["m_outer"].abs() / scale)[off].median())
+    for k in ("logprob_rel_err", "best_logprob_rel_err", "best_self_rel_err"):
+        check(diff[k] <= rtol, f"{what}: {k} {diff[k]} > {rtol}")
+    check(diff["best_below"] == 0,
+          f"{what}: {diff['best_below']} walkers' best logprob is below their logprob")
+    check(diff["best_agreement"] >= BEST_AGREEMENT,
+          f"{what}: {diff['best_agreement']} of the agreeing walkers' best points "
+          f"match (rtol 1e-4); need >= {BEST_AGREEMENT}")
+    signal = diff["moments_offdiag_median"]
     check(signal >= 10 * MOMENT_RTOL, f"{what}: off-diagonal moments of median {signal} "
           f"of sqrt(m_ii m_jj), too small for the {MOMENT_RTOL} check to see them")
-    m_err = float(((got["m_outer"] - ref["m_outer"]).abs() / scale).max())
-    check(m_err <= MOMENT_RTOL, f"{what}: moments {m_err} of sqrt(m_ii m_jj) from the "
-          f"plain version's (> {MOMENT_RTOL})")
+    for k in ("msum_err", "mouter_err"):
+        check(diff[k] <= MOMENT_RTOL, f"{what}: moments {k} {diff[k]} > {MOMENT_RTOL}")
+    check(diff["trace_rel_err"] <= TRACE_RTOL,
+          f"{what}: trace {diff['trace_rel_err']} from the plain version's > {TRACE_RTOL}")
+    check(diff["trace_last_err"] <= TRACE_LAST_RTOL,
+          f"{what}: the trace's last step is {diff['trace_last_err']} from the final "
+          f"logprob's max, mean and min (> {TRACE_LAST_RTOL})")
     ms = cuda_time_ms(lambda: chunk_rwm(ck, *args), 5)
     plain_ms = cuda_time_ms(lambda: chunk_rwm_plain(ck, *args), 1)
     return {"W": int(state.position.shape[0]), "d": ck.d, "chunk": ck.chunk,
-            "accept_rate": rate, "count_agreement": float(same_count.float().mean()),
-            "walker_agreement": agree, "pos_max_rel_err": float(walker_rel[same].max()),
-            "logprob_max_abs_err": float((got["logprob"] - ref["logprob"]).abs()[same].max()),
-            "moments_max_err": m_err, "moments_offdiag_median": signal,
-            "ms": ms, "plain_ms": plain_ms}
+            "accept_rate": rate, **diff, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_chunk(ceilings):
+def _chunk_launch(ck, ptxas):
+    """How the chunk kernel launches at W = 131072: block size, blocks per
+    SM (the card's residency for it), waves, and the registers, stack and
+    spills of the block size's instantiation."""
+    from lisp_mcmc_torch.ops.chunk_kernel import chunk_plan
+
+    plan = chunk_plan(ck, W_FLAGSHIP)
+    regs = [v for k, v in ptxas["chunk_rwm"].items()
+            if f"chunk_rwm_kernelILi{plan['threads']}E" in k]
+    check(len(regs) == 1, f"chunk kernel: no ptxas entry for {plan['threads']} threads")
+    return {**plan, **regs[0]}
+
+
+def phase_chunk(ceilings, ptxas):
     """Kernel 2 against its plain version: one chunk at W = 131072."""
     import numpy as np
     import torch
@@ -482,7 +503,8 @@ def phase_chunk(ceilings):
     check(ck is not None, "flagship chunk outside the kernel's scope")
     L = dense_l(3e-3 * np.asarray(list(FLAGSHIP.values()))).to(DEVICE)
     res = _chunk_check(ck, w.state, L, "chunk")
-    emit({"phase": "chunk_rwm", **res})
+    launch = _chunk_launch(ck, ptxas)
+    emit({"phase": "chunk_rwm", **res, "launch": launch})
     census = chunk_census(posterior_census(ck.post), ck.d)
     return {"name": "chunk_rwm", "route": "cuda",
             "source": "lisp_mcmc_torch/csrc/chunk_rwm.cu",
@@ -491,7 +513,9 @@ def phase_chunk(ceilings):
             "plain_ms": res["plain_ms"],
             **_bounds(census, ck.chunk, chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk),
                       ceilings),
-            "library_ms": None}
+            "library_ms": None, "registers": launch["registers"],
+            "threads": launch["threads"], "blocks_per_sm": launch["blocks_per_sm"],
+            "waves": launch["waves"]}
 
 
 _KINDS = ("normal", "normal_cutoff", "poisson")
@@ -579,7 +603,7 @@ def _global_walker(g, params, n_walkers, dtype, jitter, config=None):
                               device=DEVICE)
 
 
-def phase_global(ceilings, counters):
+def phase_global(ceilings, counters, ptxas):
     """test.lisp:52-78's global fit: both kernels against their plain
     versions, then the journey on both paths."""
     import numpy as np
@@ -587,7 +611,7 @@ def phase_global(ceilings, counters):
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch import synthetic
     from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
-                                                  chunk_census, data_resident)
+                                                  chunk_census)
     from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
                                                    fused_posterior_plain,
                                                    posterior_census, prepare_fused_terms)
@@ -614,17 +638,24 @@ def phase_global(ceilings, counters):
     ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
     check(ck is not None, "global: outside the chunk kernel's scope")
     L = synthetic.dense_l(3e-3 * np.asarray(list(g["truth"].values()))).to(DEVICE)
-    out["chunk"] = _chunk_check(ck, w.state, L, "global chunk d=9")
+    out["chunk"] = {**_chunk_check(ck, w.state, L, "global chunk d=9"),
+                    "launch": _chunk_launch(ck, ptxas)}
+    # the plan that ran (chunk_plan, kept on ck): the data stayed resident
+    check(out["chunk"]["launch"]["resident"] == 1, "global: the data was not resident")
     out["chunk_bounds"] = _bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
                                   chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)
-    check(data_resident(ck.post), "global: the data is not resident")
     # the tiled path: 1500 points are more than one tile
     gt = synthetic.global_fit(2, n_points=N_TILED)
     wt = _global_walker(gt, gt["truth"], W_FLAGSHIP, torch.float32, 1e-3)
     ckt = build_chunk_kernel(wt.terms, wt.spec, wt.config, W_FLAGSHIP, torch.float32)
-    check(not data_resident(ckt.post), "global tiled: the data is resident")
     out["chunk_tiled"] = {"points": N_TILED,
-                          **_chunk_check(ckt, wt.state, L, "global chunk d=9 tiled")}
+                          **_chunk_check(ckt, wt.state, L, "global chunk d=9 tiled"),
+                          "launch": _chunk_launch(ckt, ptxas),
+                          **_bounds(chunk_census(posterior_census(ckt.post), ckt.d),
+                                    ckt.chunk, chunk_bytes(ckt.post, W_FLAGSHIP, ckt.chunk),
+                                    ceilings)}
+    check(out["chunk_tiled"]["launch"]["resident"] == 0,
+          "global tiled: the data was resident")
     lp_gen = float(_global_walker(g, g["truth"], 1, torch.float64, 0.0).state.logprob[0])
 
     for c in counters:
@@ -661,34 +692,37 @@ def phase_global(ceilings, counters):
     emit(out)
 
 
-def phase_chunk_wide(ceilings):
-    """The chunk kernel's runtime-d variant: a five-dataset global fit, d = 18."""
+def phase_chunk_wide(ceilings, ptxas):
+    """The chunk kernel on a five-dataset global fit, d = 18."""
     import numpy as np
     import torch
     from lisp_mcmc_torch import synthetic
-    from lisp_mcmc_torch.ops.chunk_kernel import (REGISTER_D, build_chunk_kernel,
-                                                  chunk_bytes, chunk_census)
+    from lisp_mcmc_torch.ops.chunk_kernel import build_chunk_kernel, chunk_bytes, chunk_census
     from lisp_mcmc_torch.ops.loglik_kernel import posterior_census
 
     g = synthetic.global_fit(5)
     w = _global_walker(g, g["truth"], W_FLAGSHIP, torch.float32, 1e-3)
     ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
-    check(ck is not None and ck.d > REGISTER_D, "chunk_wide: not the runtime-d variant")
+    check(ck is not None and ck.d == 18, "chunk_wide: not the d = 18 fit")
     L = synthetic.dense_l(3e-3 * np.asarray(list(g["truth"].values()))).to(DEVICE)
     res = _chunk_check(ck, w.state, L, "chunk_wide d=18")
     emit({"phase": "chunk_wide", "terms": len(g["functions"]), **res,
+          "launch": _chunk_launch(ck, ptxas),
           **_bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
                     chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)})
 
 
-def phase_nv(counters):
+def phase_nv(ceilings, counters):
     """The NV pipeline: fit_nv_file on three synthetic spectra, one after
-    another, the constraints in torch beside the fused kernel."""
+    another, the prior's bounds and declared constraints inside the fused
+    kernel; times the fused kernel on the first spectrum's ensemble."""
     import tempfile
     import torch
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch import nv, synthetic
-    from lisp_mcmc_torch.ops.loglik_kernel import prepare_fused_terms
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = synthetic.write_nv_file(os.path.join(tmp, "nv-spectra.txt"))
@@ -706,31 +740,112 @@ def phase_nv(counters):
     spectra = []
     for i, (w, truth) in enumerate(zip(walkers, synthetic.NV_SPECTRA)):
         post = prepare_fused_terms(w.terms, w.spec, w.dtype)
-        check("_fused" in w._runner_cache and post is not None and len(post.rest) == 1,
-              f"nv {i}: not the fused path with the constraints in torch beside it")
+        check("_fused" in w._runner_cache and post is not None and post.rest == ()
+              and len(post.constraints) == 3,
+              f"nv {i}: not the fused path with the constraints inside the kernel")
         # a walker that breaks mu1 < mu2 gets the -1e9 penalties on the kernel
         # path as on the plain one
         pos = w.state.position.clone()
         mu1, mu2 = w.spec.index("mu1"), w.spec.index("mu2")
         pos[::2, [mu1, mu2]] = pos[::2, [mu2, mu1]]
         rel, _ = _fused_check(post, pos, RTOL["float32"], f"nv {i} constraints")
-        lp, best = w.most_likely_step()
-        spectra.append({"best_lp": lp, "mu1": best["mu1"], "mu2": best["mu2"],
-                        "truth_mu1": truth["mu1"], "truth_mu2": truth["mu2"],
-                        "field_offset": nv.walker_field_offset(w),
-                        "field_offset_truth": (truth["mu2"] - truth["mu1"]) / 2 / 2.8,
-                        "acceptance": w.acceptance(), "steps": w.age,
-                        "constraint_check_rel_err": rel})
+        spectra.append({**_nv_report(w, truth), "constraint_check_rel_err": rel})
+        if i == 0:
+            kernel1 = {"ms": cuda_time_ms(lambda: fused_posterior(pos, post), 50),
+                       "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5),
+                       **_bounds(posterior_census(post), 1, fused_bytes(post, W_FLAGSHIP),
+                                 ceilings)}
     emit({"phase": "nv", "W": W_FLAGSHIP, "spectra": spectra, "seconds": secs,
           "chain_steps_per_sec": W_FLAGSHIP * sum(s["steps"] for s in spectra) / secs,
-          "launches": launches, "tolerance_mhz": NV_TOL_MHZ})
+          "launches": launches, "tolerance_mhz": NV_TOL_MHZ, "fused_kernel": kernel1})
+    _nv_gates(spectra, "nv")
+
+
+def _nv_report(w, truth):
+    """One NV fit's numbers against its generating parameters."""
+    from lisp_mcmc_torch import nv
+
+    lp, best = w.most_likely_step()
+    return {"best_lp": lp, "mu1": best["mu1"], "mu2": best["mu2"],
+            "truth_mu1": truth["mu1"], "truth_mu2": truth["mu2"],
+            "field_offset": nv.walker_field_offset(w),
+            "field_offset_truth": (truth["mu2"] - truth["mu1"]) / 2 / 2.8,
+            "acceptance": w.acceptance(), "steps": w.age}
+
+
+def _nv_gates(spectra, name):
+    """mu1, mu2 and the field offset within NV_TOL_MHZ, acceptance 0.2-0.4."""
     for i, sp in enumerate(spectra):
         for k, want in (("mu1", "truth_mu1"), ("mu2", "truth_mu2"),
                         ("field_offset", "field_offset_truth")):
             check(abs(sp[k] - sp[want]) <= NV_TOL_MHZ,
-                  f"nv {i}: {k} {sp[k]} not within {NV_TOL_MHZ} of {sp[want]}")
+                  f"{name} {i}: {k} {sp[k]} not within {NV_TOL_MHZ} of {sp[want]}")
         check(0.2 <= sp["acceptance"] <= 0.4,
-              f"nv {i}: final acceptance {sp['acceptance']} outside 0.2-0.4")
+              f"{name} {i}: final acceptance {sp['acceptance']} outside 0.2-0.4")
+
+
+# The NV chunk check's proposal: about one posterior standard deviation of
+# scale1, scale2, mu1, mu2, sigma and bg0 each (spectrum 2, noise 0.001).
+NV_CHUNK_STEP = (1.3e-4, 1.3e-4, 0.1, 0.1, 0.1, 5e-5)
+
+
+def phase_nv_chunk(ceilings, counters, ptxas):
+    """The NV fit on the chunk kernel: the kernel against its plain version
+    on spectrum 2 started at scale1 / scale2 = 1.08 (so proposals cross the
+    0.9-1.1 window and must be refused), then the three spectra as a
+    WalkerSet of nv_walker on posterior_impl="chunk_kernel"."""
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import nv, synthetic
+    from lisp_mcmc_torch.models import double_lorentzian_bg
+    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
+                                                  chunk_census, chunk_rwm)
+    from lisp_mcmc_torch.ops.loglik_kernel import posterior_census
+    from lisp_mcmc_torch.walker_set import WalkerSet
+
+    x, ys = synthetic.nv_spectra()
+    start = {**synthetic.NV_SPECTRA[1], "scale1": 1.08 * synthetic.NV_SPECTRA[1]["scale2"]}
+    w = mfit.walker_create(function=double_lorentzian_bg, data=(x, ys[1]), params=start,
+                           data_error=nv.nv_data_std_dev(ys[1]),
+                           log_prior=nv.make_nv_prior(ys[1]), n_walkers=W_FLAGSHIP,
+                           seed=0, walker_jitter=2e-4, device=DEVICE)
+    ck = build_chunk_kernel(w.terms, w.spec, w.config, W_FLAGSHIP, torch.float32)
+    check(ck is not None and ck.post.rest == () and len(ck.post.constraints) == 3,
+          "nv_chunk: the NV fit's constraints are not in the chunk kernel")
+    L = synthetic.dense_l(NV_CHUNK_STEP).to(DEVICE)
+    res = _chunk_check(ck, w.state, L, "nv chunk")
+    # the kernel's walkers end inside the constraints, some at the edge
+    st = w.state
+    end = chunk_rwm(ck, st.position, st.logprob, st.best_position, st.best_logprob, L,
+                    1000, 0.0, torch.tensor([20240607], dtype=torch.int32, device=DEVICE))
+    cols = {k: end["position"][:, j] for j, k in enumerate(w.spec.keys)}
+    broken = int((nv._nv_constraints(cols, None, None) != 0).sum())
+    ratio_max = float((cols["scale1"] / cols["scale2"]).max())
+    check(broken == 0, f"nv chunk: {broken} walkers end outside the constraints")
+    check(ratio_max > 1.095, f"nv chunk: the walkers never neared the ratio's edge "
+          f"({ratio_max})")
+    out = {"phase": "nv_chunk", "W": W_FLAGSHIP,
+           "check": {**res, "ratio_max": ratio_max, "launch": _chunk_launch(ck, ptxas),
+                     **_bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
+                               chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)}}
+
+    cfg = mfit.FitConfig(posterior_impl="chunk_kernel", auto=None)
+    walkers = WalkerSet(nv.nv_walker((x, y), n_walkers=W_FLAGSHIP, config=cfg,
+                                     device=DEVICE) for y in ys)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walkers.adaptive_steps(N_NV, collect_history=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches["chunk_rwm"] > 0, "nv_chunk: the chunk kernel never launched")
+    spectra = [_nv_report(w, truth) for w, truth in zip(walkers, synthetic.NV_SPECTRA)]
+    out.update(spectra=spectra, seconds=secs, launches=launches, tolerance_mhz=NV_TOL_MHZ,
+               chain_steps_per_sec=W_FLAGSHIP * sum(s["steps"] for s in spectra) / secs)
+    emit(out)
+    _nv_gates(spectra, "nv_chunk")
 
 
 def _lp_generating():
@@ -876,15 +991,16 @@ def main():
     counters = (fused_posterior, chunk_rwm, chain_probe)
     t_start = time.perf_counter()
     phase_card()
-    phase_build()
+    ptxas = phase_build()
     ceilings, probe_row = phase_roofline(counters)
-    kernels = [phase_fused(ceilings), phase_chunk(ceilings)]
+    kernels = [phase_fused(ceilings), phase_chunk(ceilings, ptxas)]
     phase_twins(ceilings)
-    phase_global(ceilings, counters)
-    phase_chunk_wide(ceilings)
+    phase_global(ceilings, counters, ptxas)
+    phase_chunk_wide(ceilings, ptxas)
     main_launches = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
-    phase_nv(counters)
+    phase_nv(ceilings, counters)
+    phase_nv_chunk(ceilings, counters, ptxas)
     phase_profile()
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]

@@ -4,10 +4,11 @@
 // (build_fused_posterior).  For each posterior term in turn, as the Pallas
 // kernel loops over its term_meta: the term's twin at every data point,
 // residual times inv_sigma and the likelihood's masked reduction; then the
-// bounds prior of every term.  The walker-independent constant
-// (log-normalisation, or -sum lgamma(y+1)) and whatever part of a prior is
-// not a bounds table are added by the Python wrapper, as in the JAX
-// package, so the f32 sum does not lose the digits that decide an MH step.
+// bounds prior and the declared constraints of every term.  The
+// walker-independent constant (log-normalisation, or -sum lgamma(y+1)) and
+// whatever part of a prior is neither a bounds table nor declared
+// constraints are added by the Python wrapper, as in the JAX package, so
+// the f32 sum does not lose the digits that decide an MH step.
 //
 // What bounds it on an H100: arithmetic.  Per walker-point the flagship's
 // lorder_mixed_bg term costs ~10 FP operations plus one IEEE division
@@ -27,7 +28,8 @@ namespace lmt {
 template <typename T>
 __global__ void __launch_bounds__(256)
 fused_posterior_kernel(const T* __restrict__ pos, int W, int d, const Terms<T> terms,
-                       const Bounds<T> bounds, T* __restrict__ out) {
+                       const Bounds<T> bounds, const Constraints<T> cons,
+                       T* __restrict__ out) {
   __shared__ T tile[MAX_COLS * TILE];
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = w < W;
@@ -58,20 +60,24 @@ fused_posterior_kernel(const T* __restrict__ pos, int W, int d, const Terms<T> t
   T prior = T(0);
   for (int e = 0; e < bounds.n; ++e)
     prior += bound_penalty(row[bounds.col[e]], bounds.lo[e], bounds.hi[e]);
+  if (cons.n > 0)
+    prior += constraint_total(cons.n, cons.idx, cons.val, [&](int c) { return row[c]; });
   out[w] = total + prior;
 }
 
 template <typename T>
 cudaError_t launch(const void* pos, int W, int d, int n_terms, const int* meta,
                    const void* const* cols, const int* bcol, const void* blo,
-                   const void* bhi, int nb, void* out, cudaStream_t s) {
+                   const void* bhi, int nb, const int* cidx, const void* cval, int nc,
+                   void* out, cudaStream_t s) {
   if (n_terms < 1 || n_terms > MAX_TERMS) return cudaErrorInvalidValue;
   const Terms<T> terms = make_terms<T>(n_terms, meta, cols);
   const Bounds<T> bounds{bcol, static_cast<const T*>(blo), static_cast<const T*>(bhi), nb};
+  const Constraints<T> cons{cidx, static_cast<const T*>(cval), nc};
   const int threads = 256;
   const int blocks = (W + threads - 1) / threads;
   fused_posterior_kernel<T><<<blocks, threads, 0, s>>>(
-      static_cast<const T*>(pos), W, d, terms, bounds, static_cast<T*>(out));
+      static_cast<const T*>(pos), W, d, terms, bounds, cons, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -79,16 +85,20 @@ cudaError_t launch(const void* pos, int W, int d, int n_terms, const int* meta,
 
 // dtype: 0 = float32, 1 = float64.  meta and cols are host arrays of
 // n_terms terms (models.cuh: make_terms); bcol, blo, bhi the nb bounds
-// entries on the device.  Returns the cudaError_t of the launch.
+// entries and cidx, cval the nc declared constraints (models.cuh:
+// Constraints), all on the device.  Returns the cudaError_t of the launch.
 extern "C" int lmt_fused_posterior(int dtype, const void* pos, int W, int d,
                                    int n_terms, const int* meta,
                                    const void* const* cols, const int* bcol,
                                    const void* blo, const void* bhi, int nb,
+                                   const int* cidx, const void* cval, int nc,
                                    void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lmt::launch<float>(pos, W, d, n_terms, meta, cols, bcol, blo, bhi, nb, out, s);
+    return lmt::launch<float>(pos, W, d, n_terms, meta, cols, bcol, blo, bhi, nb,
+                              cidx, cval, nc, out, s);
   if (dtype == 1)
-    return lmt::launch<double>(pos, W, d, n_terms, meta, cols, bcol, blo, bhi, nb, out, s);
+    return lmt::launch<double>(pos, W, d, n_terms, meta, cols, bcol, blo, bhi, nb,
+                               cidx, cval, nc, out, s);
   return cudaErrorInvalidValue;
 }

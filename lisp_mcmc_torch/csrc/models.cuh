@@ -15,8 +15,9 @@
 //   shared memory; every thread of the block then loops over them with its
 //   own walker's parameters in registers, so the (walkers x points)
 //   intermediate never reaches device memory.
-// - The likelihood reductions (normal / normal_cutoff / poisson) and the
-//   bounds prior with the reference's exact constants.
+// - The likelihood reductions (normal / normal_cutoff / poisson), the
+//   bounds prior with the reference's exact constants, and the declared
+//   constraints (priors.declared_constraints: the NV physics prior's).
 // - The keyed counter hash of lisp_mcmc_tpu/ops/chunk_pallas.py:51-92.
 #pragma once
 
@@ -35,6 +36,8 @@ enum {
   MODEL_PSEUDO_VOIGT = 12
 };
 enum { KIND_NORMAL = 0, KIND_NORMAL_CUTOFF = 1, KIND_POISSON = 2 };
+// Keep in step with loglik_kernel.CONSTRAINT_IDS.
+enum { CONSTRAINT_LE = 0, CONSTRAINT_DIFF_GE = 1, CONSTRAINT_RATIO_IN = 2 };
 
 constexpr int TILE = 512;      // data points per shared-memory tile
 constexpr int MAX_COLS = 5;    // x, y and up to three per-point constants
@@ -61,6 +64,10 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
 // Each twin: setup(p, np) from the parameters in DEVICE_MODELS order
 // (np of them; only the polynomial reads np), eval(x) per point.
@@ -373,6 +380,42 @@ template <typename T> struct Bounds {
   const T* hi;
   int n;
 };
+
+// The declared constraints: n entries, entry e is (kind, column a, column
+// b) at idx[3e..3e+2] and (lo, hi) at val[2e..2e+1], the constants in the
+// fit's type (torch compares a column with a Python float in the column's
+// type).
+template <typename T> struct Constraints {
+  const int* idx;
+  const T* val;
+  int n;
+};
+
+// The sum of the failed entries' -1e9 penalties, in order
+// (priors.constraint_total): le p[a] <= p[b]; diff_ge p[b] - p[a] >= lo;
+// ratio_in lo < p[a] / p[b] < hi, an IEEE division, so a NaN ratio
+// (0 / 0) fails both comparisons as torch's does.  p(col) reads the
+// walker's value of a column; idx and val may be in shared memory.
+template <typename T, typename P>
+__device__ __forceinline__ T constraint_total(int n, const int* idx, const T* val, P p) {
+  T total = T(0);
+  for (int e = 0; e < n; ++e) {
+    const int kind = idx[3 * e];
+    const T pa = p(idx[3 * e + 1]);
+    const T pb = p(idx[3 * e + 2]);
+    bool ok;
+    if (kind == CONSTRAINT_LE) {
+      ok = pa <= pb;
+    } else if (kind == CONSTRAINT_DIFF_GE) {
+      ok = sub_rn(pb, pa) >= val[2 * e];
+    } else {
+      const T ratio = div_rn(pa, pb);
+      ok = val[2 * e] < ratio && ratio < val[2 * e + 1];
+    }
+    total = add_rn(total, ok ? T(0) : T(-1e9));
+  }
+  return total;
+}
 
 // ---- keyed counter hash (chunk_pallas.py:_hash_bits, _uniform_from_bits)
 __device__ __forceinline__ uint32_t fin(uint32_t x, uint32_t m1, uint32_t m2) {

@@ -26,8 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["resolve_device", "load_library", "build_all", "BUILD_DIR",
-           "CSRC_DIR", "KERNEL_SOURCES"]
+__all__ = ["resolve_device", "load_library", "build_all", "build_log",
+           "ptxas_table", "BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lisp_mcmc_torch"
@@ -108,6 +108,35 @@ def build_all(names=None) -> dict[str, str]:
                    if not _target(n).exists()]
         return {n: _finish_build(n, proc, tmp, target)
                 for n, proc, tmp, target in pending}
+
+
+def build_log(name: str) -> str:
+    """The ``nvcc`` log of library ``name``'s current build (``-Xptxas=-v``:
+    registers, stack and spills per kernel)."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def ptxas_table(log: str) -> dict:
+    """``{kernel: {registers, stack, spill_stores, spill_loads}}`` from one
+    ``-Xptxas=-v`` log (device functions without a register line left out)."""
+    import re
+
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            table[name] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name in table:
+            table[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in table.items() if "registers" in v}
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -6,8 +6,9 @@ Port of the single-spectrum part of ``lisp_mcmc_tpu/nv.py``:
     (``nv-dir->data``, 8-10);
   - the physics prior (21-34): box bounds on scales/mus/sigma/bg plus the
     hard constraints mu1 < mu2, mu2 - mu1 >= 6 MHz, 0.9 < scale1/scale2 <
-    1.1, each at -1e9.  On the GPU the boxes run in the fused kernel and
-    the constraints in torch beside it (``ops/loglik_kernel.split_prior``);
+    1.1, each at -1e9, declared as data (``priors.declared_constraints``)
+    so that both CUDA kernels evaluate the boxes and the constraints
+    (``ops/loglik_kernel.split_prior``);
   - the noise estimate from the quieter of the first/last deciles (36-41);
   - the parameter auto-guess (43-48);
   - the per-spectrum walker factory and the sequential drivers (50-66);
@@ -28,7 +29,7 @@ from .fit import Walker, walker_create
 from .io import get_filename, read_file_data
 from .likelihoods import log_likelihood_normal
 from .models import double_lorentzian_bg
-from .priors import constraint_penalty, make_bounds_prior
+from .priors import declared_constraints, diff_ge, le, make_bounds_prior, ratio_in
 from .walker_set import WalkerSet
 
 __all__ = [
@@ -64,15 +65,14 @@ def nv_dir_data(directory: str):
     return spectra
 
 
-def _nv_constraints(p, pens, ds):
-    """Hard physics constraints (nv-specific.lisp:31-34)."""
-    return (
-        constraint_penalty(p["mu1"] <= p["mu2"])
-        + constraint_penalty(p["mu2"] - p["mu1"] >= 6.0)
-        + constraint_penalty(
-            (0.9 < p["scale1"] / p["scale2"]) & (p["scale1"] / p["scale2"] < 1.1)
-        )
-    )
+# Hard physics constraints (nv-specific.lisp:31-34): mu1 <= mu2,
+# mu2 - mu1 >= 6 MHz, 0.9 < scale1 / scale2 < 1.1.
+_nv_constraints = declared_constraints(
+    le("mu1", "mu2"),
+    diff_ge("mu2", "mu1", 6.0),
+    ratio_in("scale1", "scale2", 0.9, 1.1),
+)
+_nv_constraints.__name__ = "_nv_constraints"
 
 
 # Physics prior (nv-specific.lisp:21-34): the reference's exact boxes and

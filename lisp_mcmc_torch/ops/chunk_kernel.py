@@ -3,19 +3,22 @@
 Port of ``lisp_mcmc_tpu/ops/chunk_pallas.py``.  The CUDA kernel
 (``csrc/chunk_rwm.cu``) keeps each walker's state on the chip across the
 chunk: proposal draw (keyed counter hash + Box-Muller), the fused
-posterior of every term (``csrc/models.cuh``), MH accept, best tracking
-and the accepted-move moments.  Adaptation and the trace contract stay
-with the chunk runner (``kernel.py``), which reads the dict this returns.
+posterior of every term (``csrc/models.cuh``), the bounds table and the
+declared constraints, MH accept, best tracking and the accepted-move
+moments.  Adaptation and the trace contract stay with the chunk runner
+(``kernel.py``), which reads the dict this returns.
 
 Scope (:func:`chunk_coverage` names what is outside it): ungrouped,
 untempered rwm, float32, the fused kernel's coverage
-(``loglik_kernel.kernel_coverage``), priors that are bounds tables only
-(nothing else can run inside a 200-step launch), a walker count with a
-128-multiple block, and d <= :data:`MAX_D`.  Up to d = 16 the walker's
-state is in registers (variants for d <= 8 and d <= 16); above, a
-runtime-d variant keeps it in local memory.  The data stays in shared
-memory for the whole chunk where :func:`data_resident` says so, and is
-staged tile by tile every step otherwise.
+(``loglik_kernel.kernel_coverage``), priors that are a bounds table,
+declared constraints (``priors.declared_constraints``) or both (a torch
+closure cannot run inside a 200-step launch), a walker count with a
+128-multiple block, and d <= :data:`MAX_D`.  One kernel serves every d:
+the walker's position and step are rows of shared memory, and the block
+size (256 or 128 threads) follows from d, the shared memory and the
+residency the card reports (:func:`chunk_plan`).  The data stays in
+shared memory for the whole chunk where :func:`data_resident` says so,
+and is staged tile by tile every step otherwise.
 
 The random stream is the JAX kernel's, bit for bit in its uniforms:
 :func:`_hash_bits` / :func:`_uniform_from_bits` below reproduce
@@ -37,17 +40,18 @@ import numpy as np
 import torch
 
 from ..device import check_launch, load_library
-from .loglik_kernel import (FusedPosterior, kernel_coverage, pick_block,
-                            posterior_raw_plain, prepare_fused_terms, split_prior)
+from .loglik_kernel import (FusedPosterior, fused_posterior_plain, kernel_coverage,
+                            pick_block, posterior_raw_plain, posterior_rel_err,
+                            prepare_fused_terms, split_prior)
 
 __all__ = ["ChunkKernel", "build_chunk_kernel", "chunk_bytes", "chunk_census",
-           "chunk_coverage", "chunk_rwm", "chunk_rwm_plain", "MAX_D",
-           "REGISTER_D", "RESIDENT_FLOATS", "TILE", "data_resident"]
+           "chunk_coverage", "chunk_diff", "chunk_plan", "chunk_rwm", "chunk_rwm_plain", "MAX_D",
+           "MOMENT_GROUP", "RESIDENT_FLOATS", "TILE", "data_resident"]
 
-MAX_D = 64         # the runtime-d variant's limit (csrc/chunk_rwm.cu: MAX_D_RUNTIME)
-REGISTER_D = 16    # up to here the walker's state is in registers
+MAX_D = 64              # csrc/chunk_rwm.cu: MAX_D
 RESIDENT_FLOATS = 8192  # data kept in shared memory for the whole chunk (csrc/chunk_rwm.cu)
 TILE = 512              # data points per shared-memory tile (csrc/models.cuh)
+MOMENT_GROUP = 8        # moment entries warp-summed together (csrc/chunk_rwm.cu: GROUP)
 _M32 = 0xFFFFFFFF
 _DRAW_OFFSET = 0x68E31DA4
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -97,6 +101,8 @@ class ChunkKernel:
     temp_amp: float
     greedy: bool
     neg_floor: float
+    # chunk_plan's plan by walker count, worked out once
+    plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def d(self) -> int:
@@ -104,10 +110,11 @@ class ChunkKernel:
 
 
 def data_resident(post: FusedPosterior) -> bool:
-    """Whether the chunk kernel stages the data once for the whole chunk
-    (``lmt_chunk_rwm``): every term fits one tile and all terms' columns,
-    each at the tile's stride, fit :data:`RESIDENT_FLOATS`.  Otherwise it
-    stages each term tile by tile every step."""
+    """Whether the chunk kernel may stage the data once for the whole
+    chunk (``lmt_chunk_rwm``): every term fits one tile and all terms'
+    columns, each at the tile's stride, fit :data:`RESIDENT_FLOATS`.
+    Otherwise it stages each term tile by tile every step, as it also does
+    where that lets more warps reside (:func:`chunk_plan`'s ``resident``)."""
     return (all(t.n <= TILE for t in post.terms)
             and sum(len(t.cols) for t in post.terms) * TILE <= RESIDENT_FLOATS)
 
@@ -127,9 +134,12 @@ def chunk_coverage(terms, spec, config, n_walkers: int, dtype) -> str | None:
     if reason is not None:
         return reason
     for i, t in enumerate(terms):
-        if split_prior(t.prior, spec.keys)[1] is not None:
-            name = getattr(t.prior, "__name__", repr(t.prior))
-            return (f"term {i}: prior {name!r} is not a bounds table alone; "
+        rest = split_prior(t.prior, spec.keys)[1]
+        if rest is not None:
+            closure = getattr(t.prior, "_extra", None) or t.prior
+            name = getattr(closure, "__name__", repr(closure))
+            return (f"term {i}: prior {name!r} is not a bounds table alone or "
+                    "with declared constraints (priors.declared_constraints); "
                     "the chunk kernel evaluates no torch code inside its "
                     "200-step launch")
     return None
@@ -241,8 +251,37 @@ def chunk_rwm_plain(ck: ChunkKernel, position, logprob, best_position,
 
 
 _CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_PLAN_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def chunk_plan(ck: ChunkKernel, W: int) -> dict:
+    """How the kernel launches one chunk of W walkers on the current card
+    (``lmt_chunk_plan``): ``threads`` per block, ``blocks``,
+    ``blocks_per_sm`` (the residency the card reports for that block's
+    registers and shared memory), ``sms``, ``smem_bytes`` per block,
+    ``resident`` (1: the data stays in shared memory for the chunk; 0: it
+    is staged tile by tile every step, which the plan also takes where it
+    lets more warps reside) and ``waves``, the blocks over the blocks the
+    SMs hold at once.  Worked out once per W and kept on ``ck``: every
+    launch of W walkers takes this plan (:func:`chunk_rwm`)."""
+    if W in ck.plans:
+        return dict(ck.plans[W])
+    post = ck.post
+    lib = load_library("chunk_rwm")
+    fn = lib.lmt_chunk_plan
+    fn.argtypes, fn.restype = _PLAN_ARGTYPES, ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    code = fn(ck.d, len(post.terms), ctypes.addressof(post.meta), len(post.bounds),
+              len(post.constraints), int(W), ctypes.addressof(out))
+    check_launch(lib, code, "chunk_plan")
+    plan = dict(zip(("threads", "blocks", "blocks_per_sm", "sms", "smem_bytes",
+                     "resident"), out))
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    ck.plans[W] = plan
+    return dict(plan)
 
 
 def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
@@ -274,8 +313,8 @@ def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
     lib = load_library("chunk_rwm")
     fn = lib.lmt_chunk_rwm
     fn.argtypes, fn.restype = _CHUNK_ARGTYPES, ctypes.c_int
-    lib.lmt_chunk_blocks.argtypes, lib.lmt_chunk_blocks.restype = [ctypes.c_int], ctypes.c_int
-    nblk = lib.lmt_chunk_blocks(W)
+    plan = chunk_plan(ck, W)
+    nblk = plan["blocks"]
 
     def empty(*shape):
         return torch.empty(*shape, dtype=f32, device=dev)
@@ -290,12 +329,13 @@ def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
               pos.data_ptr(), lp.data_ptr(), best.data_ptr(), best_lp.data_ptr(),
               L.data_ptr(), seed.data_ptr(), post.bcol.data_ptr(),
               post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
+              post.cidx.data_ptr(), post.cval.data_ptr(), len(post.constraints),
               pos_out.data_ptr(), lp_out.data_ptr(), best_out.data_ptr(),
               best_lp_out.data_ptr(), acc_out.data_ptr(), msum_p.data_ptr(),
               mouter_p.data_ptr(), trace_p.data_ptr(),
               W, ck.wb, ck.chunk, int(anneal_step), float(temp_override),
               ck.ts, ck.phase_rate, ck.temp_amp, ck.neg_floor, int(ck.greedy),
-              stream)
+              plan["threads"], nblk, plan["smem_bytes"], plan["resident"], stream)
     check_launch(lib, code, "chunk_rwm")
     chunk_rwm.launches += 1
     const = post.scalar_const.to(f32)
@@ -337,6 +377,69 @@ def chunk_rwm(ck: ChunkKernel, position, logprob, best_position, best_logprob,
 chunk_rwm.launches = 0  # kernel launches, for proof that a path used it
 
 
+def chunk_diff(got: dict, ref: dict, post: FusedPosterior) -> dict:
+    """How far one chunk's result ``got`` is from ``ref``, the same chunk
+    from the same state, L and seed run another way (the kernel against
+    :func:`chunk_rwm_plain`), measure by measure.
+
+    A walker *agrees* when its accept count and its final position (rtol
+    1e-4) match: a 1-ulp difference of logf/cosf can flip a near-tie
+    accept and send a walker down another path (``walker_agreement`` is
+    their share).  Over the agreeing walkers: ``logprob_rel_err`` and
+    ``best_logprob_rel_err`` (``loglik_kernel.posterior_rel_err``),
+    ``logprob_max_abs_err`` and
+    ``best_agreement``, the share whose best point matches at rtol 1e-4
+    (a logprob within rounding of the best can flip the best-tracking test
+    the same way).  Over every walker: ``best_self_rel_err``, ``got``'s
+    best logprob against the plain posterior at its best point (a best
+    point that is stale or another walker's fails it), ``best_below``, the
+    walkers whose best logprob is below their logprob, ``msum_err``, the
+    moment sums against ``ref``'s plus the end-position difference of the
+    walkers that disagree (a walker's accepted moves add up to its
+    displacement), relative to sqrt(m_ii), ``mouter_err``, the outer
+    products entry by entry relative to sqrt(m_ii m_jj)
+    (``moments_offdiag_median``: the off-diagonal entries' median size on
+    that scale), ``trace_rel_err``, the per-step
+    max, mean and min by posterior_rel_err (the walkers that disagree move
+    them), and ``trace_last_err``, the largest of ``got``'s last step's
+    max and min against those of its own final logprob (0 unless the
+    trace is written at the wrong step) and its mean's posterior_rel_err.
+    """
+    pos_rel = ((got["position"] - ref["position"]).abs()
+               / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
+    same_count = got["accept_counts"] == ref["accept_counts"]
+    same = same_count & (pos_rel <= 1e-4)
+    best_rel = ((got["best_position"] - ref["best_position"]).abs()
+                / ref["best_position"].abs().clamp_min(1e-30)).amax(dim=1)
+    best_self = fused_posterior_plain(got["best_position"].to(post.dtype), post)
+    diag = ref["m_outer"].diagonal()
+    scale = (diag[:, None] * diag[None, :]).sqrt()
+    off = ~torch.eye(diag.shape[0], dtype=torch.bool, device=diag.device)
+    moved = (got["position"] - ref["position"])[~same].sum(dim=0)
+    lp = got["logprob"]
+    last = torch.stack([got["trace_max"][-1] - lp.max(), got["trace_min"][-1] - lp.min()])
+    return {
+        "walker_agreement": float(same.float().mean()),
+        "count_agreement": float(same_count.float().mean()),
+        "pos_max_rel_err": float(pos_rel[same].max()),
+        "logprob_rel_err": posterior_rel_err(lp[same], ref["logprob"][same], post),
+        "logprob_max_abs_err": float((lp - ref["logprob"]).abs()[same].max()),
+        "best_logprob_rel_err": posterior_rel_err(
+            got["best_logprob"][same], ref["best_logprob"][same], post),
+        "best_agreement": float((best_rel[same] <= 1e-4).float().mean()),
+        "best_self_rel_err": posterior_rel_err(got["best_logprob"], best_self, post),
+        "best_below": int((got["best_logprob"] < lp).sum()),
+        "msum_err": float(((got["m_sum"] - ref["m_sum"] - moved).abs() / diag.sqrt()).max()),
+        "mouter_err": float(((got["m_outer"] - ref["m_outer"]).abs() / scale).max()),
+        "moments_offdiag_median": (float((ref["m_outer"].abs() / scale)[off].median())
+                                   if diag.shape[0] > 1 else None),
+        "trace_rel_err": max(posterior_rel_err(got[k], ref[k], post)
+                             for k in ("trace_max", "trace_mean", "trace_min")),
+        "trace_last_err": max(float(last.abs().max()), posterior_rel_err(
+            got["trace_mean"][-1:], lp.mean()[None], post)),
+    }
+
+
 def chunk_census(census: dict, d: int) -> dict:
     """Operations of one walker-step of the chunk kernel, by class.
 
@@ -347,21 +450,27 @@ def chunk_census(census: dict, d: int) -> dict:
     - temperature: ``cos(step * rate) * amp``: 2 flops, 1 cos;
     - Box-Muller per parameter: two uniforms (``f - 1``), ``-2 log u1``,
       ``2 pi u2``, ``sqrt * cos``: 5 flops, 1 log, 1 sqrt, 1 cos;
-    - ``prop = pos + L z``: d multiplies, d(d-1)/2 FMAs, d adds = d^2 + d;
+    - ``step = L z``: d multiplies and d(d-1)/2 FMAs = d^2; the proposal
+      ``pos + step``, once per parameter the posterior reads: counted as d;
     - the accept uniform and its log: 1 flop, 1 log; ``(lp' - lp) / T``:
-      1 flop, 1 division;
-    - moments: ``step * accf`` and ``msum +=`` per parameter, one FMA per
-      lower-triangle entry = d^2 + 3d; ``acc += accf``: 1;
+      1 flop, 1 division; ``pos += step`` and ``acc += accf``: d + 1
+      (the position's adds run on accepted steps only; counted always);
+    - moments: ``step[r] * step[c]`` per lower-triangle entry, d(d+1)/2
+      multiplies; each group of :data:`MOMENT_GROUP` entries is summed over
+      the warp by 9 shuffles, each with an add, and one add into the
+      warp's row (10 adds: a warp instruction is counted for each of its
+      walkers, whatever its active lanes); the shuffles themselves, like
+      the selects and the shared-memory loads, are not counted;
     - the trace's warp sum: 5 adds.
 
-    So ``2 d^2 + 9 d + 10`` flops, ``d + 1`` logs, ``d + 1`` cos, ``d``
-    square roots and 1 division per walker-step.  The runtime-d variant
-    (d > 16) warp-sums each moment entry every step, 5 adds more per entry,
-    which are not counted.
+    So ``d^2 + d(d+1)/2 + 7 d + 10 + 10 ceil(m / 8)`` flops, m = d +
+    d(d+1)/2 moment entries, ``d + 1`` logs, ``d + 1`` cos, ``d`` square
+    roots and 1 division per walker-step.
     """
+    groups = -(-(d + d * (d + 1) // 2) // MOMENT_GROUP)
     census = {row: dict(v) for row, v in census.items()}
-    census["per_step"].update(flops=2 * d * d + 9 * d + 10, div=1, log=d + 1,
-                              cos=d + 1, sqrt=d)
+    census["per_step"].update(flops=d * d + d * (d + 1) // 2 + 7 * d + 10 + 10 * groups,
+                              div=1, log=d + 1, cos=d + 1, sqrt=d)
     return census
 
 

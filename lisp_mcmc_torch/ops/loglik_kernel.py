@@ -14,11 +14,12 @@ a Python callable, so:
 - a term's model runs as its CUDA twin (``csrc/models.cuh``): any zoo
   model (``models.DEVICE_MODELS``), or one declared with
   ``models.renamed``;
-- a prior is split in two.  Its bounds table (``make_bounds_prior``'s
-  ``._bounds``) is evaluated in the kernel; whatever remains (the table's
-  ``extra``, or a prior that is not a table at all) is evaluated per walker
-  by the prior's own torch code on the ``(W,)`` parameter columns and
-  added to the kernel's output.
+- a prior is split in three.  Its bounds table (``make_bounds_prior``'s
+  ``._bounds``) and its declared constraints (an ``extra`` made by
+  ``priors.declared_constraints``, as the NV prior's) are evaluated in the
+  kernel; whatever remains (an undeclared ``extra``, or a prior that is
+  not a table at all) is evaluated per walker by the prior's own torch
+  code on the ``(W,)`` parameter columns and added to the kernel's output.
 
 :func:`kernel_coverage` refuses only what the Pallas kernel refuses too (a
 custom likelihood, multi-column x) and a model with no twin;
@@ -46,10 +47,10 @@ from ..device import check_launch, load_library
 from ..likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
                            log_likelihood_poisson)
 from ..models.zoo import MAX_POLY, device_model, model_coverage
-from ..priors import bound_penalty, log_prior_flat, prior_bounds
+from ..priors import bound_penalty, constraint_total, log_prior_flat, prior_bounds
 
 __all__ = ["FusedPosterior", "FusedTerm", "MAX_TERMS", "OP_CLASSES",
-           "census_totals", "class_rates",
+           "census_totals", "class_rates", "constraints_plain",
            "fusable_terms", "fused_bytes", "fused_census", "fused_posterior",
            "fused_posterior_plain", "kernel_coverage", "model_census",
            "op_census", "opmix_bound_ms", "pick_block", "posterior_census",
@@ -58,6 +59,7 @@ __all__ = ["FusedPosterior", "FusedTerm", "MAX_TERMS", "OP_CLASSES",
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
+CONSTRAINT_IDS = {"le": 0, "diff_ge": 1, "ratio_in": 2}  # csrc/models.cuh
 # Limits of csrc/models.cuh: MAX_TERMS terms a launch, MAX_NP twin
 # parameters, MAX_COLS data columns; a term's row of the host metadata is
 # (model, kind, n, np, column of each of MAX_NP parameters), its META_STRIDE.
@@ -128,20 +130,24 @@ class _Penalties(Mapping):
 
 
 def split_prior(prior, keys):
-    """``(bounds entries, rest)`` of a prior on a fit with these ``keys``.
+    """``(bounds entries, rest, constraints)`` of a prior on a fit with
+    these ``keys``.
 
     The entries ``((column, lo, hi), ...)`` are the bounds table the
-    kernels evaluate; ``rest(params, dataset)`` is what remains, for torch
-    to evaluate beside them (None when nothing does): the ``extra`` of
-    ``make_bounds_prior`` (given the table's penalties, as the prior
+    kernels evaluate; the constraints ``((Constraint, column a, column
+    b), ...)`` are the declared ``extra``'s entries
+    (``priors.declared_constraints``), which the kernels evaluate after
+    the table; ``rest(params, dataset)`` is what remains, for torch to
+    evaluate beside them (None when nothing does): an undeclared ``extra``
+    of ``make_bounds_prior`` (given the table's penalties, as the prior
     gives them), or the whole of a prior that is not a table.  None when
-    the table names a parameter the fit lacks.
+    the table or a constraint names a parameter the fit lacks.
     """
     if prior is log_prior_flat:
-        return (), None
+        return (), None, ()
     bounds = getattr(prior, "_bounds", None)
     if bounds is None:
-        return (), prior
+        return (), prior, ()
     entries = []
     for name, (lo, hi) in bounds.items():
         key = name[1:] if name.startswith(":") else name
@@ -150,12 +156,18 @@ def split_prior(prior, keys):
         entries.append((keys.index(key), float(lo), float(hi)))
     extra = getattr(prior, "_extra", None)
     if extra is None:
-        return tuple(entries), None
+        return tuple(entries), None, ()
+    declared = getattr(extra, "_constraints", None)
+    if declared is not None:
+        if any(c.a not in keys or c.b not in keys for c in declared):
+            return None
+        return (tuple(entries), None,
+                tuple((c, keys.index(c.a), keys.index(c.b)) for c in declared))
 
     def rest(params, dataset=None):
         return extra(params, _Penalties(params, bounds), dataset)
 
-    return tuple(entries), rest
+    return tuple(entries), rest, ()
 
 
 def kernel_coverage(terms, spec) -> str | None:
@@ -170,7 +182,8 @@ def kernel_coverage(terms, spec) -> str | None:
         if reason is not None:
             return f"term {i}: {reason}"
         if split_prior(t.prior, spec.keys) is None:
-            return f"term {i}: its bounds table names a parameter the fit lacks"
+            return (f"term {i}: its bounds table or constraints name a "
+                    "parameter the fit lacks")
     return None
 
 
@@ -192,17 +205,21 @@ class FusedTerm:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPosterior:
-    """Everything one evaluation reads: the terms, the bounds table of
-    every term's prior, the rest of the priors and the scalar constant."""
+    """Everything one evaluation reads: the terms, the bounds table and
+    the declared constraints of every term's prior, the rest of the priors
+    and the scalar constant."""
 
     terms: tuple          # FusedTerm, in the fit's order
     bounds: tuple         # ((column, lo, hi), ...), every term's table in turn
+    constraints: tuple    # ((Constraint, column a, column b), ...), in turn
     rest: tuple           # ((prior remainder, dataset), ...) for torch
     keys: tuple           # the fit's parameter names (the remainders read them)
     scalar_const: torch.Tensor  # () dtype, added outside the kernel
     bcol: torch.Tensor    # (nb,) int32
     blo: torch.Tensor     # (nb,) dtype
     bhi: torch.Tensor     # (nb,) dtype
+    cidx: torch.Tensor    # (nc, 3) int32: kind (CONSTRAINT_IDS), column a, column b
+    cval: torch.Tensor    # (nc, 2) dtype: lo, hi (rounded to dtype, as torch compares)
     meta: ctypes.Array    # host rows of csrc/models.cuh's make_terms
     col_ptrs: ctypes.Array
 
@@ -232,7 +249,7 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
     def col(a):
         return a.to(dtype).contiguous()
 
-    fused, bounds, rest = [], [], []
+    fused, bounds, constraints, rest = [], [], [], []
     const = torch.zeros((), dtype=dtype, device=dev)
     for t in terms:
         ds = t.dataset
@@ -249,8 +266,9 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
             const = const - torch.sum(ds.log_fact_y.to(dtype))
         fused.append(FusedTerm(kind=kind, base=base, model_id=model_id,
                                names=names, pidx_host=pidx, cols=cols))
-        entries, remainder = split_prior(t.prior, spec.keys)
+        entries, remainder, declared = split_prior(t.prior, spec.keys)
         bounds.extend(entries)
+        constraints.extend(declared)
         if remainder is not None:
             rest.append((remainder, ds))
 
@@ -262,18 +280,23 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
     for ft in fused:
         ptrs += [c.data_ptr() for c in ft.cols] + [None] * (MAX_COLS - len(ft.cols))
     return FusedPosterior(
-        terms=tuple(fused), bounds=tuple(bounds), rest=tuple(rest),
-        keys=tuple(spec.keys), scalar_const=const,
+        terms=tuple(fused), bounds=tuple(bounds), constraints=tuple(constraints),
+        rest=tuple(rest), keys=tuple(spec.keys), scalar_const=const,
         bcol=torch.tensor([b[0] for b in bounds], dtype=torch.int32, device=dev),
         blo=torch.tensor([b[1] for b in bounds], dtype=dtype, device=dev),
         bhi=torch.tensor([b[2] for b in bounds], dtype=dtype, device=dev),
+        cidx=torch.tensor([[CONSTRAINT_IDS[c.kind], a, b] for c, a, b in constraints],
+                          dtype=torch.int32, device=dev).reshape(-1, 3),
+        cval=torch.tensor([[c.lo, c.hi] for c, _, _ in constraints],
+                          dtype=dtype, device=dev).reshape(-1, 2),
         meta=(ctypes.c_int * len(meta))(*meta),
         col_ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
 def posterior_raw_plain(positions, post: FusedPosterior):
     """What the kernels compute, in plain PyTorch: every term's likelihood
-    minus the scalar constant, plus the bounds table.
+    minus the scalar constant, plus the bounds table, plus the declared
+    constraints.
 
     Each term runs its twin's zoo model on the twin's columns, so the
     parameter mapping is the kernel's.  Shared with the chunk stepper's
@@ -296,7 +319,18 @@ def posterior_raw_plain(positions, post: FusedPosterior):
             total = total + torch.sum((y * torch.log(mu) - mu) * t.cols[2], dim=-1)
     for r, lo, hi in post.bounds:
         total = total + bound_penalty(positions[:, r], lo, hi)
+    if post.constraints:
+        total = total + constraints_plain(positions, post.constraints)
     return total
+
+
+def constraints_plain(positions, constraints):
+    """The declared constraints' penalties per walker (``(Constraint,
+    column a, column b)`` entries), summed as the prior sums them."""
+    cols = {}
+    for c, a, b in constraints:
+        cols[c.a], cols[c.b] = positions[:, a], positions[:, b]
+    return constraint_total([c for c, _, _ in constraints], cols.__getitem__)
 
 
 def _rest(positions, post: FusedPosterior):
@@ -316,7 +350,8 @@ def fused_posterior_plain(positions, post: FusedPosterior):
 
 
 _FUSED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
 
 
 def _launch_fused(positions, post: FusedPosterior):
@@ -341,6 +376,7 @@ def _launch_fused(positions, post: FusedPosterior):
               post.d, len(post.terms), ctypes.addressof(post.meta),
               ctypes.addressof(post.col_ptrs), post.bcol.data_ptr(),
               post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
+              post.cidx.data_ptr(), post.cval.data_ptr(), len(post.constraints),
               out.data_ptr(), stream)
     check_launch(lib, code, "fused_posterior")
     fused_posterior.launches += 1
@@ -439,6 +475,11 @@ _KIND_CENSUS = {
 # per bounds entry per walker: bound_penalty's two distances,
 # 1e-5*dist, exp, -1, *-1e10, and prior += (.)
 _BOUND_CENSUS = {"flops": 6, "exp": 1}
+# per declared constraint per walker (csrc/models.cuh: constraint_total):
+# total += penalty, and diff_ge's difference or ratio_in's IEEE division;
+# once per walker when there is any, prior += total
+_CONSTRAINT_CENSUS = {"le": {"flops": 1}, "diff_ge": {"flops": 2},
+                      "ratio_in": {"flops": 1, "div": 1}}
 
 
 def model_census(model_id: int, n_params: int | None = None) -> tuple[dict, dict]:
@@ -489,15 +530,18 @@ def posterior_census(post: FusedPosterior) -> dict:
     """The census of one evaluation of a posterior of any number of terms.
 
     Its ``per_point`` row already sums every term's points (term t's
-    per-point row times its N), so count it with ``N = 1``.  The priors'
-    remainders run in torch beside the kernel and are not counted.
+    per-point row times its N), so count it with ``N = 1``.  The bounds
+    table and the declared constraints are counted per walker; the
+    priors' remainders run in torch beside the kernel and are not.
     """
     point, walker = {}, {}
     for t in post.terms:
         c = fused_census(t.model_id, t.kind, n_params=len(t.pidx_host))
         point = _classes(point, {k: t.n * v for k, v in c["per_point"].items()})
         walker = _classes(walker, c["per_walker"])
-    walker = _classes(walker, {c: len(post.bounds) * n for c, n in _BOUND_CENSUS.items()})
+    walker = _classes(walker, {c: len(post.bounds) * n for c, n in _BOUND_CENSUS.items()},
+                      *(_CONSTRAINT_CENSUS[c.kind] for c, _, _ in post.constraints),
+                      {"flops": 1 if post.constraints else 0})
     return op_census(per_point=point, per_walker=walker)
 
 

@@ -7,15 +7,20 @@ Rebuilds the reference's prior layer (mcmc-fitting.lisp):
     ``dist`` is the distance to the nearer bound (358-360); exactly 0
     inside the open interval.
   - data-dependent prior factories (``log-prior-fixer``, 837-840).
-  - the hard constraint style of ``nv-specific.lisp:31-34``.
+  - the hard constraint style of ``nv-specific.lisp:31-34``, and its
+    declared form (:func:`declared_constraints` of :func:`le`,
+    :func:`diff_ge` and :func:`ratio_in` entries).
 
 A prior is ``prior(params, dataset) -> scalar or (W,)``; batched
-parameter values are ``(W,)`` columns.  The fused kernels cover the flat
-prior and a bounds prior without ``extra`` (they read ``._bounds``).
+parameter values are ``(W,)`` columns.  The CUDA kernels cover the flat
+prior and a bounds prior whose ``extra`` is absent or declared (they read
+``._bounds`` and the extra's ``._constraints``); any other prior is a
+closure that only torch can evaluate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Mapping
 
 import torch
@@ -26,6 +31,12 @@ __all__ = [
     "prior_bounds",
     "make_bounds_prior",
     "constraint_penalty",
+    "Constraint",
+    "le",
+    "diff_ge",
+    "ratio_in",
+    "constraint_total",
+    "declared_constraints",
     "combine_priors",
     "resolve_prior",
 ]
@@ -95,6 +106,75 @@ def make_bounds_prior(bounds: Mapping[str, tuple], extra: Callable | None = None
 def constraint_penalty(satisfied, penalty=-1e9):
     """Hard constraint term: 0 when satisfied, ``penalty`` otherwise."""
     return torch.where(torch.as_tensor(satisfied), 0.0, penalty)
+
+
+@dataclasses.dataclass(frozen=True)
+class Constraint:
+    """One declared hard constraint between parameters ``a`` and ``b``.
+
+    ``kind`` is ``"le"`` (``p[a] <= p[b]``), ``"diff_ge"`` (``p[b] - p[a]
+    >= lo``) or ``"ratio_in"`` (``lo < p[a] / p[b] < hi``, strict on both
+    sides: a NaN ratio fails).  A failed entry adds
+    :func:`constraint_penalty`'s -1e9.  The CUDA kernels evaluate the same
+    comparisons (``csrc/models.cuh``: ``constraint_total``).
+    """
+
+    kind: str
+    a: str
+    b: str
+    lo: float = 0.0
+    hi: float = 0.0
+
+    def satisfied(self, pa, pb):
+        """Whether the entry holds at parameter values ``pa``, ``pb``."""
+        if self.kind == "le":
+            return pa <= pb
+        if self.kind == "diff_ge":
+            return pb - pa >= self.lo
+        ratio = pa / pb
+        return (self.lo < ratio) & (ratio < self.hi)
+
+
+def le(a: str, b: str) -> Constraint:
+    """``p[a] <= p[b]``."""
+    return Constraint("le", a, b)
+
+
+def diff_ge(b: str, a: str, c: float) -> Constraint:
+    """``p[b] - p[a] >= c``."""
+    return Constraint("diff_ge", a, b, float(c))
+
+
+def ratio_in(a: str, b: str, lo: float, hi: float) -> Constraint:
+    """``lo < p[a] / p[b] < hi``, strict on both sides."""
+    return Constraint("ratio_in", a, b, float(lo), float(hi))
+
+
+def constraint_total(entries, column: Callable):
+    """The sum of every entry's penalty, in order; ``column(name)`` gives a
+    parameter's value (or ``(W,)`` column).  0.0 without entries."""
+    total = 0.0
+    for i, c in enumerate(entries):
+        pen = constraint_penalty(c.satisfied(column(c.a), column(c.b)))
+        total = pen if i == 0 else total + pen
+    return total
+
+
+def declared_constraints(*entries: Constraint):
+    """An ``extra`` for :func:`make_bounds_prior` made of declared entries.
+
+    ``extra(params, penalties, dataset)`` returns the entries' penalties
+    summed in order; the entries ride on it as ``._constraints``, which is
+    how the CUDA kernels recognise an extra they can evaluate (a closure
+    of any other kind stays in torch).
+    """
+
+    def extra(params, penalties=None, dataset=None):
+        return constraint_total(entries, params.__getitem__)
+
+    extra._constraints = tuple(entries)
+    extra.__name__ = "declared_constraints"
+    return extra
 
 
 def combine_priors(*priors: Callable):

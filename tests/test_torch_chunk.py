@@ -27,8 +27,12 @@ from lisp_mcmc_tpu.models import line as j_line
 from lisp_mcmc_tpu.models import lorder_mixed_bg as j_lorder
 from lisp_mcmc_tpu.ops.chunk_pallas import (_hash_bits, _uniform_from_bits,
                                             build_chunk_pallas)
+from lisp_mcmc_torch import nv, synthetic
+from lisp_mcmc_torch.models import double_lorentzian_bg as t_dlbg
 from lisp_mcmc_torch.models import line as t_line
 from lisp_mcmc_torch.models import lorder_mixed_bg as t_lorder
+from lisp_mcmc_tpu import nv as jnv
+from lisp_mcmc_tpu.models import double_lorentzian_bg as j_dlbg
 
 # The printed reference parameters (tests/test_flagship_regression.py) with
 # scale x10: at the printed scale the whole resonance is worth 1.5
@@ -36,6 +40,7 @@ from lisp_mcmc_torch.models import lorder_mixed_bg as t_lorder
 FLAGSHIP = {"scale": -4.788638538682475e-5, "linewidth": 121.09571484294366,
             "x0": 2784.6836516658504, "mix": 3.141546812249173,
             "bg0": -1.0629009389997092e-6, "bg1": 2.8207485034278606e-10}
+NV_L_SCALE = 1.5e-3  # the NV chunk's diagonal L, relative to each parameter
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,12 +84,13 @@ def test_hash_uniforms_bit_identical(f32):
                                       err_msg="hash uniforms must be bit-identical")
 
 
-def _chunk_pair(j_fn, t_fn, x, y, sigma, params, l_scale, jitter, seed):
+def _chunk_pair(j_fn, t_fn, x, y, sigma, params, l_scale, jitter, seed,
+                j_prior=None, t_prior=tfit.log_prior_flat):
     """Build both chunk steppers on the same data and start state."""
     cfg = jfit.FitConfig()
     jw = jfit.walker_create(function=j_fn, data=(x, y), params=params,
                             data_error=sigma, n_walkers=256, seed=seed,
-                            walker_jitter=jitter, dtype=jnp.float32)
+                            walker_jitter=jitter, log_prior=j_prior, dtype=jnp.float32)
     j_run = build_chunk_pallas(jw.terms, jw.spec, cfg, 256, jnp.float32,
                                block_walkers=128, interpret=True)
     ds = jw.terms[0].dataset
@@ -95,7 +101,7 @@ def _chunk_pair(j_fn, t_fn, x, y, sigma, params, l_scale, jitter, seed):
     t_ds = dataset_from_numpy(fields, dtype=torch.float32, device="cpu")
     terms = [_Term(fn=t_fn, dataset=t_ds,
                    likelihood=tfit.log_likelihood_normal,
-                   prior=tfit.log_prior_flat)]
+                   prior=t_prior)]
     spec = tfit.ParamSpec(jw.spec.keys)
     t_ck = tck.build_chunk_kernel(terms, spec, tfit.FitConfig(), 256,
                                   torch.float32, block_walkers=128)
@@ -111,16 +117,28 @@ def params_vec(jw):
     return np.asarray(jw.state.position)[0]
 
 
-@pytest.mark.parametrize("model", ["line", "lorder_mixed_bg"])
+@pytest.mark.parametrize("model", ["line", "lorder_mixed_bg", "double_lorentzian_bg_nv"])
 def test_plain_chunk_matches_jax_chunk(f32, model):
+    """``double_lorentzian_bg_nv``: the NV fit under ``make_nv_prior(y)``,
+    whose bounds and declared constraints both chunk steppers evaluate
+    every step (spectrum 2 sits at scale1 / scale2 = 1.05, so proposals
+    cross the 0.9-1.1 window)."""
+    kw = {}
     if model == "line":
         x = np.linspace(0.0, 10.0, 50)
         y = 2.0 * x + 1.0 + 0.5 * np.random.default_rng(1).standard_normal(50)
         args = (j_line, t_line, x, y, 0.5, {"m": 2.0, "b": 1.0}, 0.02, 0.05, 3)
-    else:
+    elif model == "lorder_mixed_bg":
         x, y = flagship_data()
         args = (j_lorder, t_lorder, x, y, 1e-7, FLAGSHIP, 3e-3, 1e-3, 4)
-    j_run, t_ck, start, L = _chunk_pair(*args)
+    else:
+        x, ys = synthetic.nv_spectra()
+        args = (j_dlbg, t_dlbg, x, ys[1], synthetic.NV_NOISE, synthetic.NV_SPECTRA[1],
+                NV_L_SCALE, 0.01, 5)
+        kw = dict(j_prior=jnv.make_nv_prior(ys[1]), t_prior=nv.make_nv_prior(ys[1]))
+    j_run, t_ck, start, L = _chunk_pair(*args, **kw)
+    if model == "double_lorentzian_bg_nv":
+        assert len(t_ck.post.constraints) == 3 and t_ck.post.rest == ()
     anneal_step, seed = 1000, 20240607
     jo = j_run(*[jnp.asarray(a) for a in start], jnp.asarray(L),
                anneal_step, 0.0, seed)
@@ -188,6 +206,55 @@ def test_plain_chunk_trace_order_and_logprob_consistency():
     assert torch.all(out["trace_mean"] >= out["trace_min"] - 1e-4)
     lp_re = w._eval_batch(out["position"]).numpy()
     np.testing.assert_allclose(lp_re, out["logprob"].numpy(), rtol=1e-4, atol=1e-3)
+
+
+def _fault(out, fault):
+    """``out`` (a chunk's result) with one fault a kernel could have."""
+    out = dict(out)
+    if fault == "best_stale":
+        out["best_position"] = out["input_best"]
+    elif fault == "best_of_another_walker":
+        out["best_position"] = out["best_position"].roll(1, dims=0)
+    elif fault == "m_sum_misindexed":
+        out["m_sum"] = out["m_sum"].roll(1)
+    elif fault == "trace_a_step_late":
+        for k in ("trace_max", "trace_mean", "trace_min"):
+            out[k] = torch.cat([out[k][:1], out[k][:-1]])
+    return out
+
+
+# chunk_diff's measure a fault moves, and the gate it must then fail
+# (chip_smoke: RTOL float32, MOMENT_RTOL, TRACE_LAST_RTOL).
+_FAULTS = {"best_stale": ("best_self_rel_err", 1e-4),
+           "best_of_another_walker": ("best_self_rel_err", 1e-4),
+           "m_sum_misindexed": ("msum_err", 5e-3),
+           "trace_a_step_late": ("trace_last_err", 1e-5)}
+
+
+@pytest.mark.parametrize("fault", [None, *_FAULTS])
+def test_chunk_diff_sees_each_fault(fault):
+    """``chunk_diff``, which holds the CUDA chunk kernel to its plain
+    version on the card, is exact on two equal results and fails its gate
+    on each fault of the best point, the moment sums and the trace."""
+    w = _line_walker_t(seed=5)
+    ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 256, torch.float32)
+    st = w.state
+    L = synthetic.dense_l([0.05, 0.2])
+    ref = tck.chunk_rwm(ck, st.position, st.logprob, st.best_position,
+                        st.best_logprob, L, 0, 0.0, 7)
+    got = _fault({**ref, "input_best": st.best_position.to(torch.float32)}, fault)
+    diff = tck.chunk_diff(got, ref, ck.post)
+    if fault is None:
+        assert diff["walker_agreement"] == diff["best_agreement"] == 1.0
+        assert diff["best_below"] == 0
+        for k in ("logprob_rel_err", "best_logprob_rel_err", "msum_err", "mouter_err",
+                  "trace_rel_err"):
+            assert diff[k] == 0.0, k
+        # summed in another order than the result's
+        assert diff["best_self_rel_err"] <= 1e-6 and diff["trace_last_err"] <= 1e-6
+    else:
+        key, gate = _FAULTS[fault]
+        assert diff[key] > 10 * gate, (key, diff[key])
 
 
 def test_chunk_kernel_path_through_adaptive_steps():

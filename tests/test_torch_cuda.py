@@ -12,8 +12,13 @@ equivalence probe), float64 at 1e-9, for every twin, every likelihood
 kind and posteriors of several terms (``posterior_rel_err``); the chunk
 kernel, with a dense L, at >= 99 % of walkers agreeing in accept count
 and position (rtol 1e-4), because a 1-ulp difference of logf/cosf can
-flip a near-tie accept, and its moments within 5e-3 of sqrt(m_ii m_jj)
-(chip_smoke.MOMENT_RTOL); the chain
+flip a near-tie accept, their logprob and best logprob at 1e-4 and their
+best points for 99 % of them, every best point at its best logprob,
+its moments within 5e-3 of sqrt(m_ii m_jj) (chip_smoke.MOMENT_RTOL) and
+its trace within 1e-4 (``chunk_kernel.chunk_diff``), at every d from 1
+to 64 and on tiled data; the
+NV prior's declared constraints in both kernels, -1e9 exactly where the
+plain version puts it; the chain
 probe at rtol 1e-6 in float32 (the plain version rounds as the kernel
 does, fma included) and 1e-12 in float64 (the kernel's DFMA rounds once
 where the plain version rounds twice), with a check that the chains move
@@ -37,6 +42,14 @@ FLAGSHIP = {"scale": -4.788638538682475e-5, "linewidth": 121.09571484294366,
             "bg0": -1.0629009389997092e-6, "bg1": 2.8207485034278606e-10}
 BOUNDS = {"linewidth": (1.0, 500.0), "x0": (2700.0, 2900.0), "mix": (0.0, 6.3)}
 MOMENT_RTOL = 5e-3  # chip_smoke.MOMENT_RTOL
+# Of the agreeing walkers, the share whose best point matches: a near tie
+# of a new logprob with the best flips the best-tracking test; at W = 4096
+# and d = 1 that took 0.12 % of them on an H100 (chip_smoke holds 131072
+# walkers to 0.999).  A stale or misplaced best point fails
+# best_self_rel_err instead.
+BEST_AGREEMENT = 0.99
+TRACE_RTOL = 1e-4  # chip_smoke.TRACE_RTOL
+TRACE_LAST_RTOL = 1e-5  # chip_smoke.TRACE_LAST_RTOL
 
 pytestmark = pytest.mark.cuda
 
@@ -87,42 +100,40 @@ def test_chunk_kernel_matches_plain(cuda):
     got = tck.chunk_rwm(ck, *args)
     assert tck.chunk_rwm.launches == before + 1
     ref = tck.chunk_rwm_plain(ck, *args)
-    rel = ((got["position"] - ref["position"]).abs()
-           / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
-    agree = (got["accept_counts"] == ref["accept_counts"]) & (rel <= 1e-4)
-    assert agree.float().mean().item() >= 0.99
-    _moments_agree(got, ref)
-    assert got["m_count"].item() == got["accept_counts"].sum().item()
+    _agree(got, ref, ck.post)
     assert torch.all(got["trace_max"] >= got["trace_mean"] - 1e-3)
     assert torch.all(got["trace_mean"] >= got["trace_min"] - 1e-3)
 
 
-def _agree(got, ref):
-    """Share of walkers whose accept count and final position (rtol 1e-4)
-    match."""
-    rel = ((got["position"] - ref["position"]).abs()
-           / ref["position"].abs().clamp_min(1e-30)).amax(dim=1)
-    return ((got["accept_counts"] == ref["accept_counts"]) & (rel <= 1e-4)).float().mean().item()
-
-
-def _moments_agree(got, ref):
-    """The moments entry by entry within MOMENT_RTOL of sqrt(m_ii m_jj):
-    the <= 1 % of walkers that disagree take other steps.  With a dense L
-    the off-diagonal entries are of a median size above 10 MOMENT_RTOL, so
-    a misplaced or dropped entry fails."""
-    diag = ref["m_outer"].diagonal()
-    scale = (diag[:, None] * diag[None, :]).sqrt()
-    off = ~torch.eye(diag.shape[0], dtype=torch.bool, device=diag.device)
-    assert (ref["m_outer"].abs() / scale)[off].median().item() >= 10 * MOMENT_RTOL
-    assert bool(((got["m_outer"] - ref["m_outer"]).abs() <= MOMENT_RTOL * scale).all())
+def _agree(got, ref, post):
+    """chip_smoke._chunk_check's gates but the acceptance's
+    (``chunk_kernel.chunk_diff``): >= 99 % of walkers agree in accept
+    count and final position (rtol 1e-4); on those, logprob and best
+    logprob within 1e-4 (``posterior_rel_err``) and the best point for
+    BEST_AGREEMENT of them; every best point gives its best logprob, no
+    lower than the logprob; the moments within MOMENT_RTOL; the trace
+    within TRACE_RTOL and its last step TRACE_LAST_RTOL from the final
+    logprob's.  With a dense L the off-diagonal moments are of a median
+    size above 10 MOMENT_RTOL, so a misplaced or dropped entry fails."""
+    diff = tck.chunk_diff(got, ref, post)
+    assert diff["walker_agreement"] >= 0.99, diff
+    for k in ("logprob_rel_err", "best_logprob_rel_err", "best_self_rel_err"):
+        assert diff[k] <= 1e-4, (k, diff)
+    assert diff["best_below"] == 0, diff
+    assert diff["best_agreement"] >= BEST_AGREEMENT, diff
+    if diff["moments_offdiag_median"] is not None:
+        assert diff["moments_offdiag_median"] >= 10 * MOMENT_RTOL, diff
+    assert diff["msum_err"] <= MOMENT_RTOL and diff["mouter_err"] <= MOMENT_RTOL, diff
     torch.testing.assert_close(got["m_outer"], got["m_outer"].T)
+    assert got["m_count"].item() == got["accept_counts"].sum().item()
+    assert diff["trace_rel_err"] <= TRACE_RTOL, diff
+    assert diff["trace_last_err"] <= TRACE_LAST_RTOL, diff
 
 
 @pytest.mark.parametrize("n_datasets,n_points", [(2, 334), (5, 334), (2, 1500)])
 def test_chunk_kernel_several_terms_matches_plain(cuda, n_datasets, n_points):
-    """The global fit: d = 9 runs the d <= 16 register variant, d = 18 the
-    runtime-d one; 1500 points are more than one tile, and are staged tile
-    by tile every step."""
+    """The global fit at d = 9 and d = 18; 1500 points are more than one
+    tile, and are staged tile by tile every step."""
     g = synthetic.global_fit(n_datasets, n_points=n_points)
     w = tfit.walker_create(function=g["functions"], data=g["data"], params=g["truth"],
                            data_error=1e-7, n_walkers=4096, walker_jitter=1e-3,
@@ -135,9 +146,109 @@ def test_chunk_kernel_several_terms_matches_plain(cuda, n_datasets, n_points):
             1000, 0.0, torch.tensor([7], dtype=torch.int32, device=cuda))
     got = tck.chunk_rwm(ck, *args)
     ref = tck.chunk_rwm_plain(ck, *args)
-    assert _agree(got, ref) >= 0.99
+    _agree(got, ref, ck.post)
     assert 0.05 < got["accept_counts"].mean().item() / ck.chunk < 0.95
-    _moments_agree(got, ref)
+
+
+def _poly_fit(d, n_points=60, seed=0):
+    """A fit of d polynomial coefficients: terms of up to 16 coefficients
+    each (the later ones ``models.renamed``), on x in [-1, 1], sigma 0.05.
+    The coefficients are 1-2 / (j + 1) in size, of either sign, so no
+    walker's position nears 0, where the check's relative tolerance would
+    see nothing but the size of the number."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, n_points)
+    sizes = [16] * (d // 16) + ([d % 16] if d % 16 else [])
+    fns, data, params = [], [], {}
+    for k, m in enumerate(sizes):
+        names = {f"c{j}": (f"c{j}" if k == 0 else f"t{k}c{j}") for j in range(m)}
+        coef = rng.choice([-1.0, 1.0], m) * (1.0 + rng.uniform(size=m)) / (1.0 + np.arange(m))
+        y = np.polynomial.polynomial.polyval(x, coef) + 0.05 * rng.standard_normal(n_points)
+        fns.append(models.polynomial if k == 0 else models.renamed(models.polynomial, names))
+        data.append((x, y))
+        params.update({names[f"c{j}"]: float(coef[j]) for j in range(m)})
+    return fns, data, params
+
+
+@pytest.mark.parametrize("d", [1, 6, 8, 9, 16, 17, 18, 64])
+def test_chunk_kernel_every_d_matches_plain(cuda, d):
+    """One kernel for every d <= 64 (the block size follows from d:
+    ``chunk_plan``), against the plain stepper on polynomial fits."""
+    fns, data, params = _poly_fit(d)
+    w = tfit.walker_create(function=fns, data=data, params=params, data_error=0.05,
+                           n_walkers=4096, walker_jitter=1e-3, device=cuda)
+    assert w.ndim == d
+    ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 4096, torch.float32)
+    plan = tck.chunk_plan(ck, 4096)
+    assert plan["threads"] in (128, 256) and plan["blocks_per_sm"] >= 1
+    assert plan["blocks"] * plan["threads"] >= 4096
+    st = w.state
+    L = synthetic.dense_l(5e-3 * np.abs(np.asarray(list(params.values())))).to(cuda)
+    args = (st.position, st.logprob, st.best_position, st.best_logprob, L,
+            1000, 0.0, torch.tensor([7], dtype=torch.int32, device=cuda))
+    got = tck.chunk_rwm(ck, *args)
+    ref = tck.chunk_rwm_plain(ck, *args)
+    _agree(got, ref, ck.post)
+    assert 0.05 < got["accept_counts"].mean().item() / ck.chunk < 0.95
+    assert ck.plans[4096] == plan  # the launch took the kept plan
+
+
+def _nv_walker(device, n_walkers, dtype, jitter):
+    xs, ys = synthetic.nv_spectra()
+    return nv.nv_walker((xs, ys[1]), n_walkers=n_walkers, walker_jitter=jitter,
+                        dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_fused_kernel_nv_constraints_match_plain(cuda, dtype, rtol):
+    """Walkers with mu1 and mu2 swapped, scale2 near 0 or exactly 0: the
+    kernel's -1e9 penalties fall exactly where the plain version's do."""
+    w = _nv_walker(cuda, 1000, dtype, 0.01)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    assert post.rest == () and len(post.constraints) == 3
+    i = w.spec.index
+    pos = w.state.position.clone()
+    pos[::4, [i("mu1"), i("mu2")]] = pos[::4, [i("mu2"), i("mu1")]]
+    pos[1::4, i("scale2")] = 1e-30
+    pos[2::8, i("scale2")] = 0.0
+    pos[6::8, [i("scale1"), i("scale2")]] = 0.0
+    got = tlk.fused_posterior(pos, post)
+    want = tlk.fused_posterior_plain(pos, post)
+    assert tlk.posterior_rel_err(got, want, post) <= rtol
+    broken = want < -5e8
+    assert bool(torch.equal(got < -5e8, broken)) and 0.5 < broken.float().mean().item() < 1
+    # the penalties alone: -1e9 per failed entry, whatever the likelihood
+    cons = tlk.constraints_plain(pos, post.constraints)
+    assert bool(torch.equal(((got - want).abs() < 1e4) & broken, broken))
+    assert set(cons.unique().tolist()) >= {0.0, -1e9, -2e9}
+
+
+def test_chunk_kernel_nv_constraints_match_plain(cuda):
+    """The NV fit's chunk (d = 6, 401 points, its bounds and constraints)
+    against the plain stepper, from spectrum 2's parameters with scale1 /
+    scale2 = 1.08: proposals cross the 0.9-1.1 window and must be refused."""
+    xs, ys = synthetic.nv_spectra()
+    start = {**synthetic.NV_SPECTRA[1], "scale1": 1.08 * synthetic.NV_SPECTRA[1]["scale2"]}
+    w = tfit.walker_create(function=models.double_lorentzian_bg, data=(xs, ys[1]),
+                           params=start, data_error=nv.nv_data_std_dev(ys[1]),
+                           log_prior=nv.make_nv_prior(ys[1]), n_walkers=4096,
+                           walker_jitter=2e-4, device=cuda)
+    ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 4096, torch.float32)
+    assert ck is not None and len(ck.post.constraints) == 3
+    st = w.state
+    # about one posterior standard deviation of scale1, scale2, mu1, mu2,
+    # sigma and bg0 each
+    L = synthetic.dense_l([1.3e-4, 1.3e-4, 0.1, 0.1, 0.1, 5e-5]).to(cuda)
+    args = (st.position, st.logprob, st.best_position, st.best_logprob, L,
+            1000, 0.0, torch.tensor([7], dtype=torch.int32, device=cuda))
+    got = tck.chunk_rwm(ck, *args)
+    ref = tck.chunk_rwm_plain(ck, *args)
+    _agree(got, ref, ck.post)
+    assert 0.05 < got["accept_counts"].mean().item() / ck.chunk < 0.95
+    cols = {k: got["position"][:, j] for j, k in enumerate(w.spec.keys)}
+    assert bool((nv._nv_constraints(cols, None, None) == 0).all())
+    ratio = cols["scale1"] / cols["scale2"]
+    assert ratio.max().item() > 1.095, "the walkers never neared the ratio's edge"
 
 
 _LIKELIHOODS = {"normal": tfit.log_likelihood_normal,
@@ -170,8 +281,8 @@ def test_every_twin_matches_plain(cuda, model, optional, dtype, rtol):
 
 def test_fused_kernel_several_terms_and_priors_match_plain(cuda):
     """[gaussian_peak, line] with per-term bounds, the global pair and an NV
-    fit, whose constraints run in torch beside the kernel; some walkers
-    sit outside the bounds or break the constraints."""
+    fit, whose declared constraints run in the kernel; some walkers sit
+    outside the bounds or break the constraints."""
     rng = np.random.default_rng(2)
     x = np.linspace(-5.0, 5.0, 40)
     fits = [dict(function=[models.gaussian_peak, models.line],

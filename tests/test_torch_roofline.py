@@ -245,11 +245,18 @@ def test_chunk_census_scales_with_d(d):
     assert totals["sqrt"] == 200 * 10 * d
     assert totals["div"] == 200 * 10 * (334 + 1)
     # one more parameter adds a Box-Muller draw (a log, a cos, a square
-    # root) and a row of L z and of the moments: flops grow with d^2
+    # root), a row of L z (2d + 1), a row of the moments' products (d + 1),
+    # the proposal's and the position's adds and Box-Muller's flops (7), and
+    # 10 adds for each group of 8 moment entries it opens: flops grow with d^2
     more = tck.chunk_census(tlk.fused_census(0, "normal"), d + 1)["per_step"]
     assert {k: more[k] - c["per_step"][k] for k in ("log", "cos", "sqrt", "div")} \
         == {"log": 1, "cos": 1, "sqrt": 1, "div": 0}
-    assert more["flops"] - c["per_step"]["flops"] == 4 * d + 11
+
+    def groups(n):
+        return -(-(n + n * (n + 1) // 2) // tck.MOMENT_GROUP)
+
+    assert more["flops"] - c["per_step"]["flops"] == \
+        3 * d + 9 + 10 * (groups(d + 1) - groups(d))
 
 
 def _chunk_walker(model):
@@ -272,9 +279,13 @@ def test_chunk_census_matches_the_plain_chunks_operations(model):
     Where the two differ by design the test names it: the kernel takes the
     temperature per walker (2 flops, 1 cos) where the plain version takes
     it once on the host; the kernel warp-sums the trace (5 adds) where the
-    plain version's ``sum`` is no add; the kernel adds the lower triangle of
-    the accepted-move outer product (d(d+1)/2 FMAs, d^2 + d flops) where
-    the plain version multiplies and adds all of it (2 d^2)."""
+    plain version's ``sum`` is no add; the kernel adds the step to the
+    position (d) where the plain version selects the proposal; the kernel
+    multiplies the lower triangle of the accepted step's outer product
+    (d(d+1)/2) and warp-sums the moment entries 8 at a time (10 adds a
+    group) where the plain version scales the step by the accept (d),
+    multiplies and adds all of the outer product (2 d^2) and adds the
+    step's sum (d)."""
     w = _chunk_walker(model)
     ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 256, torch.float32)
     d, st = ck.d, w.state
@@ -297,7 +308,9 @@ def test_chunk_census_matches_the_plain_chunks_operations(model):
     c = {(W, n): chunk_ops(W, n) for W in (128, 256) for n in (1, 3)}
     p = {W: post_ops(W) for W in (128, 256)}
     want = tck.chunk_census(tlk.posterior_census(ck.post), d)["per_step"]
-    by_design = {"flops": 2 + 5 - (d * d - d), "cos": 1}
+    groups = -(-(d + d * (d + 1) // 2) // tck.MOMENT_GROUP)
+    by_design = {"flops": 2 + 5 + d + d * (d + 1) // 2 + 10 * groups - 2 * d - 2 * d * d,
+                 "cos": 1}
     for cls in tlk.OP_CLASSES:
         step = (c[256, 3][cls] - c[128, 3][cls] - c[256, 1][cls] + c[128, 1][cls]) / (128 * 2)
         post = (p[256][cls] - p[128][cls]) / 128
@@ -383,7 +396,9 @@ def _check_report(report, walkers):
                 "achieved_flops_per_sec", "pct_of_fma_ceiling"):
         assert np.isfinite(report[key]) and report[key] > 0, key
     assert report["census_flops_per_chunk"] == 200 * report["census_flops_per_step"]
-    assert report["census_per_walker_step"]["flops"] == 334 * 15 + 8 + 136
+    # per step at d = 6: 36 (L z) + 21 (the moments' products) + 42 + 10,
+    # and 10 adds for each of the 4 groups of the 27 moment entries
+    assert report["census_per_walker_step"]["flops"] == 334 * 15 + 8 + 149
     assert set(report["kernels"]) == {"fused_posterior", "chunk_rwm"}
     for row in report["kernels"].values():
         assert row["opmix_bound_ms"] > row["peak_bound_ms"] > 0
@@ -415,3 +430,26 @@ def test_microbench_ceilings_needs_a_gpu_by_default(monkeypatch):
         roofline.microbench_ceilings(torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         roofline.main()
+
+
+def test_ptxas_table_reads_registers_and_spills():
+    """``device.ptxas_table`` (chip_smoke's and kernel_ab's register
+    columns) on an ``-Xptxas=-v`` log: kernels keep their registers, stack
+    and spills; a device function without a register line is left out."""
+    from lisp_mcmc_torch.device import ptxas_table
+
+    log = """ptxas info    : Compiling entry function 'k256' for 'sm_90a'
+ptxas info    : Function properties for _ZN3lmt16chunk_rwm_kernelILi256EEEvNS_9ChunkArgsE
+    160 bytes stack frame, 44 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 160 bytes cumulative stack size
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN3lmt16chunk_rwm_kernelILi128EEEvNS_9ChunkArgsE
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+    assert ptxas_table(log) == {
+        "_ZN3lmt16chunk_rwm_kernelILi256EEEvNS_9ChunkArgsE":
+            {"stack": 160, "spill_stores": 44, "spill_loads": 60, "registers": 64},
+        "_ZN3lmt16chunk_rwm_kernelILi128EEEvNS_9ChunkArgsE":
+            {"stack": 8, "spill_stores": 0, "spill_loads": 0, "registers": 40}}

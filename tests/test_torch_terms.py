@@ -6,8 +6,8 @@
   three fits: the ``[gaussian_peak, line]`` fit with a per-term bounds prior
   of tests/test_pallas.py:59-77, test.lisp's 9-parameter global pair (the
   second model a JAX closure there, ``models.renamed`` here) and an NV fit
-  under ``make_nv_prior(y)``, whose constraints the port evaluates in torch
-  beside the kernel.
+  under ``make_nv_prior(y)``, whose declared constraints the port
+  evaluates in the kernel after the bounds table.
 - The chunk plain version against ``build_chunk_pallas(..., interpret=True)``
   at d = 9 with two terms and a dense L, float32: at least 99 % of walkers
   agree in accept count and position (rtol 1e-4), tests/test_torch_chunk.py's
@@ -142,7 +142,7 @@ def test_plain_fused_matches_jax_interpret(name):
     if name != "global":
         assert (got < -1e3).any(), "some walkers must break the bounds or constraints"
     if name == "nv":
-        assert len(post.rest) == 1 and (got < -1e8).any()
+        assert post.rest == () and len(post.constraints) == 3 and (got < -1e8).any()
 
 
 @pytest.fixture
@@ -308,9 +308,8 @@ def test_coverage_of_the_multi_term_and_prior_fits():
         assert tck.chunk_coverage(w.terms, w.spec, w.config, W, torch.float32) is None, name
     w = _walker("nv")
     assert tlk.kernel_coverage(w.terms, w.spec) is None
-    assert "bounds table alone" in tck.chunk_coverage(w.terms, w.spec, w.config, W,
-                                                      torch.float32)
-    # the wide variants: d = 18 runs, d > 64 is named
+    assert tck.chunk_coverage(w.terms, w.spec, w.config, W, torch.float32) is None
+    # the wide fits: d = 18 runs, d > 64 is named
     g = synthetic.global_fit(5)
     w5 = tfit.walker_create(function=g["functions"], data=g["data"], params=g["truth"],
                             data_error=1e-7, n_walkers=W, device="cpu")
