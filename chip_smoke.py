@@ -47,12 +47,30 @@ an H100) and the CUDA toolkit.  It
     ``WalkerSet`` of ``nv.nv_walker`` on ``posterior_impl="chunk_kernel"``,
     ``adaptive_steps(40000, collect_history=False)``, held to the ``nv``
     gates;
-13. profiles two chunks of the default path (wall clock, device time by
-    kernel, the device's busy share);
-14. prints the ``kernels`` summary line (each kernel's time, launches on
+13. ``half_width``: the fused kernel on the red-black samplers'
+    half-ensembles, W/2 = 65536 walkers (the ungrouped low half, and the
+    low halves of 8 groups flattened), against its plain version, timed
+    in turns against the full launch, with both bounds at each width;
+14. ``tempered``: ``tempered_steps(10000, rungs=8, t_max=50)`` from the
+    test.lisp start (8 rungs as adaptation groups, replica swaps at every
+    chunk end, the fused kernel once a step), held to the flagship's best
+    lp and x0 gates and to one launch a step; records the swap rates and
+    times the fused kernel on the tempered ensemble;
+15. ``ensemble``: ``sampling_steps(n, kernel=k)`` for stretch, demc and
+    slice from the generating parameters with history, the fused kernel on
+    each half-ensemble; gates best lp, x0, the sampled x0 median, the
+    acceptance (slice: the landed share), the x0 spreads against each
+    other and the launch counts; records chain-steps/sec and min-ESS/sec;
+16. ``slice_poll``: one slice chunk per ``kernel.SLICE_POLL`` value (how
+    often the slice loops read "every walker done" back), timed in turns,
+    the same chains checked on injected draws;
+17. profiles two chunks of the default path and two 20-step slice chunks
+    (wall clock, device time by kernel, the device's busy share);
+18. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
-    float32 ceilings, plain and library times), the card line and, last,
-    ``{"ok": true, "device": {...}}``.
+    float32 ceilings, plain and library times; kernel 1 also at half
+    width, with its launches on the ensemble journeys), the card line and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without the last line; it also refuses to run without a
@@ -376,17 +394,17 @@ def phase_fused(ceilings):
             "library_ms": None}
 
 
-def _bounds(census, steps, nbytes, ceilings):
+def _bounds(census, steps, nbytes, ceilings, walkers=W_FLAGSHIP):
     """The published-peak bound and the op-mix bound (measured float32
-    ceilings) of ``steps`` evaluations at W = 131072 of a float32 kernel;
-    ``census`` is a posterior's (``posterior_census``: every point summed
-    already)."""
+    ceilings) of ``steps`` evaluations at W = ``walkers`` of a float32
+    kernel; ``census`` is a posterior's (``posterior_census``: every point
+    summed already)."""
     import torch
     from lisp_mcmc_torch.ops.loglik_kernel import class_rates, opmix_bound_ms
     from lisp_mcmc_torch.roofline import peak_bound
 
-    return {**peak_bound(census, W_FLAGSHIP, 1, steps, nbytes, torch.float32),
-            "opmix_bound_ms": opmix_bound_ms(census, W_FLAGSHIP, 1, steps,
+    return {**peak_bound(census, walkers, 1, steps, nbytes, torch.float32),
+            "opmix_bound_ms": opmix_bound_ms(census, walkers, 1, steps,
                                              class_rates(ceilings))}
 
 
@@ -934,20 +952,258 @@ def phase_chunk_journey(counters):
     return launches
 
 
-def phase_profile():
-    """Where one default-path chunk spends its time: wall clock of two warm
-    chunks, then the device time by kernel (torch.profiler) of two more."""
+# The red-black samplers' half-ensembles: the flagship's W/2 walkers, and
+# (tempering's layout) the low halves of G = 8 groups, flattened.
+HALF_GROUPS = 8
+HALF_TURNS = 3
+
+
+def phase_half_width(ceilings):
+    """Kernel 1 at W/2: the ungrouped low half (a contiguous slice) and the
+    low halves of 8 groups flattened (a copy), each against its plain
+    version; the full and half launches timed in turns, with both bounds
+    at each width."""
+    import torch
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP, jitter=0.02)
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    pos = w.state.position
+    half_w = W_FLAGSHIP // 2
+    shapes = {"full": pos, "half": pos[:half_w],
+              "grouped_half": pos.reshape(HALF_GROUPS, -1, pos.shape[1])
+              [:, : W_FLAGSHIP // HALF_GROUPS // 2].reshape(-1, pos.shape[1])}
+    check(shapes["half"].is_contiguous() and shapes["grouped_half"].shape == (half_w, 6),
+          "half_width: the halves are not (W/2, d) contiguous batches")
+    out = {"phase": "half_width", "W": W_FLAGSHIP, "groups": HALF_GROUPS}
+    census = posterior_census(post)
+    for name, x in shapes.items():
+        rel, abs_err = _fused_check(post, x, RTOL["float32"], f"half_width {name}")
+        out[name] = {"W": int(x.shape[0]), "max_rel_err": rel, "max_abs_err": abs_err,
+                     **_bounds(census, 1, fused_bytes(post, x.shape[0]), ceilings,
+                               walkers=x.shape[0])}
+    # HALF_TURNS rounds of turns full, half, grouped, grouped, half, full;
+    # each shape's median turn (one turn of a round once read 40 % high)
+    order = ("full", "half", "grouped_half")
+    times = {k: [] for k in order}
+    for _ in range(HALF_TURNS):
+        for k in order + order[::-1]:
+            x = shapes[k]
+            times[k].append(cuda_time_ms(lambda: fused_posterior(x, post), 200))
+    for k in order:
+        out[k]["ms_turns"] = times[k]
+        out[k]["ms"] = sorted(times[k])[len(times[k]) // 2]
+        out[k]["opmix_share"] = out[k]["opmix_bound_ms"] / out[k]["ms"]
+    x = shapes["half"]
+    out["half"]["plain_ms"] = cuda_time_ms(lambda: fused_posterior_plain(x, post), 5)
+    out["half_over_full"] = out["half"]["ms"] / out["full"]["ms"]
+    emit(out)
+    return out
+
+
+# The tempered journey (README's second recipe): steps, rungs and the
+# hottest rung's temperature, from the test.lisp start (x0 = 2200).
+N_TEMPERED = 10000
+TEMPERED_RUNGS, TEMPERED_T_MAX = 8, 50.0
+
+
+def phase_tempered(ceilings, counters):
+    """``tempered_steps`` at W = 131072: kernel 1 once a step on the whole
+    ensemble (8 rungs as adaptation groups), replica swaps at every chunk
+    end; gates best lp and x0; times kernel 1 on the tempered ensemble."""
+    import torch
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    lp_gen = _lp_generating()
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.tempered_steps(N_TEMPERED, rungs=TEMPERED_RUNGS, t_max=TEMPERED_T_MAX)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    lp, best = w.most_likely_step()
+    rates = w.swap_rates()
+    out = {"phase": "tempered", "W": W_FLAGSHIP, "steps": N_TEMPERED,
+           "rungs": TEMPERED_RUNGS, "t_max": TEMPERED_T_MAX, "seconds": secs,
+           "chain_steps_per_sec": W_FLAGSHIP * N_TEMPERED / secs, "best_lp": lp,
+           "lp_generating": lp_gen, "x0": best["x0"], "launches": launches,
+           "posterior_evals": w.posterior_evals,
+           "swap_rates": {k: v.tolist() if hasattr(v, "tolist") else v
+                          for k, v in rates.items()}}
+    emit(out)
+    check(lp >= lp_gen - 5.0, f"tempered: best lp {lp} < lp(generating) {lp_gen} - 5")
+    check(abs(best["x0"] - FLAGSHIP["x0"]) <= 0.01 * FLAGSHIP["x0"],
+          f"tempered: x0 {best['x0']} not within 1% of {FLAGSHIP['x0']}")
+    # one evaluation a step, plus the fit's equivalence probe
+    check(w.posterior_evals == N_TEMPERED and launches["fused_posterior"] == N_TEMPERED + 1,
+          f"tempered: {launches['fused_posterior']} kernel-1 launches for "
+          f"{N_TEMPERED} steps (+1 probe)")
+    check(launches["chunk_rwm"] == 0, "tempered: the chunk kernel ran")
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    pos = w.state.position
+    rel, abs_err = _fused_check(post, pos, RTOL["float32"], "tempered ensemble")
+    kernel1 = {"max_rel_err": rel, "max_abs_err": abs_err,
+               "ms": cuda_time_ms(lambda: fused_posterior(pos, post), 100),
+               "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5),
+               **_bounds(posterior_census(post), 1, fused_bytes(post, W_FLAGSHIP), ceilings)}
+    emit({"phase": "tempered_kernel1", **kernel1})
+    return out
+
+
+# The ensemble journeys: sampling_steps from the generating parameters
+# (relative jitter 1e-3; the ensembles spread to the posterior in a few
+# hundred steps), history kept (4096 walkers); the second half of each
+# run is read as posterior samples.
+N_ENSEMBLE = {"stretch": 3000, "demc": 3000, "slice": 1000}
+ENSEMBLE_JITTER = 1e-3
+# Gates, fixed before the first chip run.
+ENSEMBLE_MIN_ACCEPT = 0.1      # stretch, demc
+SLICE_MIN_LANDED = 0.95
+ENSEMBLE_STD_FACTOR = 2.0      # each sampler's x0 std within 2x of the others'
+# SLICE_POLL values timed against each other, in turns, on one chunk.
+SLICE_POLLS = (0, 1, 4)
+SLICE_POLL_STEPS = 20
+
+
+def phase_ensemble(counters):
+    """stretch, demc and slice via ``sampling_steps`` at W = 131072, kernel
+    1 on each half-ensemble (W/2) twice a step (slice: once per
+    expansion side and shrink iteration); gates best lp, x0, the sampled
+    x0 median and spread, acceptance, and the launch counts."""
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    lp_gen = _lp_generating()
+    x0 = FLAGSHIP["x0"]
+    results, walkers = {}, {}
+    for kind, n in N_ENSEMBLE.items():
+        w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP,
+                             jitter=ENSEMBLE_JITTER)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.sampling_steps(n, kernel=kind)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        lp, best = w.most_likely_step()
+        pos, _ = w._history(n // 2)
+        t1 = time.perf_counter()
+        ess = mfit.ess_from_history(torch.as_tensor(pos, device=DEVICE), w.spec.keys)
+        ess_secs = time.perf_counter() - t1
+        xs = pos[:, :, w.spec.index("x0")].ravel()
+        r = {"steps": n, "seconds": secs, "chain_steps_per_sec": W_FLAGSHIP * n / secs,
+             "best_lp": lp, "lp_generating": lp_gen, "x0_best": best["x0"],
+             "x0_median": float(np.median(xs)), "x0_std": float(xs.std()),
+             "acceptance": w.acceptance(), "history": list(pos.shape), "ess": ess,
+             "ess_seconds": ess_secs, "min_ess_per_sec": min(ess.values()) / secs,
+             "launches": launches, "posterior_evals": w.posterior_evals,
+             "kernel1_launches_per_step": (launches["fused_posterior"] - 1) / n}
+        results[kind], walkers[kind] = r, w
+        emit({"phase": f"ensemble_{kind}", "W": W_FLAGSHIP, **r})
+        check(lp >= lp_gen - 5.0, f"{kind}: best lp {lp} < lp(generating) {lp_gen} - 5")
+        check(abs(best["x0"] - x0) <= 0.01 * x0, f"{kind}: best x0 {best['x0']} not within 1%")
+        check(abs(r["x0_median"] - x0) <= 0.01 * x0,
+              f"{kind}: sampled x0 median {r['x0_median']} not within 1% of {x0}")
+        # the equivalence probe, then every evaluation the runner made
+        check(launches["fused_posterior"] == w.posterior_evals + 1,
+              f"{kind}: {launches['fused_posterior']} kernel-1 launches, "
+              f"{w.posterior_evals} evaluations + 1 probe")
+        if kind == "slice":
+            check(r["acceptance"] >= SLICE_MIN_LANDED,
+                  f"slice: landed share {r['acceptance']} < {SLICE_MIN_LANDED}")
+            check(2 * 3 * n <= w.posterior_evals <= 2 * 38 * n,
+                  f"slice: {w.posterior_evals} evaluations for {n} steps")
+        else:
+            check(r["acceptance"] > ENSEMBLE_MIN_ACCEPT,
+                  f"{kind}: acceptance {r['acceptance']} <= {ENSEMBLE_MIN_ACCEPT}")
+            check(w.posterior_evals == 2 * n, f"{kind}: {w.posterior_evals} evaluations "
+                  f"for {n} steps, want 2 a step")
+    stds = [r["x0_std"] for r in results.values()]
+    check(max(stds) <= ENSEMBLE_STD_FACTOR * min(stds),
+          f"ensemble: x0 sample stds {stds} differ by more than {ENSEMBLE_STD_FACTOR}x")
+    return results, walkers["slice"]
+
+
+def _slice_noise(W, steps, cfg, generator):
+    """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
+    G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
+    import torch
+
+    bh = W // 2
+    shape = (steps, 2, 1, bh)
+    kw = dict(generator=generator, device=DEVICE)
+    return {"j": torch.stack([torch.randint(0, bh, shape, **kw),
+                              torch.randint(0, bh - 1, shape, **kw)], dim=-1),
+            "e": torch.rand(shape, **kw), "i": torch.rand(shape, **kw),
+            "k": torch.randint(0, cfg.slice_max_expand, shape, **kw),
+            "shrink": torch.rand((steps, 2, cfg.slice_max_shrink, 1, bh), **kw)}
+
+
+def phase_slice_poll(w):
+    """One slice chunk of SLICE_POLL_STEPS steps at W = 131072 from the
+    slice journey's end, for each SLICE_POLL value, in turns, its draws
+    from the generator (the real path: timed); then each once more on the
+    same injected draws, which must give the same chains."""
+    import dataclasses
+    import torch
+    from lisp_mcmc_torch import kernel
+
+    cfg = dataclasses.replace(w.config, kernel="slice", chunk_size=SLICE_POLL_STEPS)
+    kept = kernel.SLICE_POLL
+    times, evals, ends = {p: [] for p in SLICE_POLLS}, {}, {}
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    noise = _slice_noise(W_FLAGSHIP, SLICE_POLL_STEPS, cfg, g)
+    try:
+        for p in SLICE_POLLS + SLICE_POLLS[::-1]:
+            kernel.SLICE_POLL = p
+            run, _ = kernel.build_chunk_runner(w._batched_posterior(), w.ndim, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, out = run(w.state, True, True, True, generator=g)
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t0) * 1e3 / SLICE_POLL_STEPS)
+            if p not in ends:
+                st, out = run(w.state, True, True, True, noise=noise)
+                evals[p] = out["posterior_evals"] / SLICE_POLL_STEPS
+                ends[p] = st.position
+    finally:
+        kernel.SLICE_POLL = kept
+    same = all(torch.equal(ends[p], ends[SLICE_POLLS[0]]) for p in SLICE_POLLS)
+    best = min(SLICE_POLLS, key=lambda p: sum(times[p]))
+    out = {"phase": "slice_poll", "W": W_FLAGSHIP, "steps": SLICE_POLL_STEPS,
+           "ms_per_step": times, "evals_per_step": evals, "same_chains": same,
+           "fastest": best, "module_constant": kept}
+    emit(out)
+    check(same, "slice_poll: the SLICE_POLL values gave different chains")
+    return out
+
+
+def _profile_chunks(name, runner, state, generator, args=(True, True, False)):
+    """Wall clock of two warm chunks of ``runner``, then the device time by
+    kernel (torch.profiler) of two more; emits the ``name`` phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
-    runner = w._runner(with_history=True)
-    st = w.state
+    st = state
 
     def chunks(n):
         nonlocal st
         for _ in range(n):
-            st, _ = runner(st, True, True, False, generator=w.generator)
+            st, _ = runner(st, *args, generator=generator)
         torch.cuda.synchronize()
 
     chunks(2)
@@ -963,11 +1219,28 @@ def phase_profile():
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile_default_chunk", "W": W_FLAGSHIP, "chunk_wall_ms": wall_ms,
+    emit({"phase": name, "W": W_FLAGSHIP, "chunk_wall_ms": wall_ms,
           "device_busy_ms": device_ms if rows else None,
           "device_busy_share": device_ms / wall_ms if rows else None,
           "kernels_per_chunk": sum(r[2] for r in rows),
           "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]})
+
+
+def phase_profile(slice_walker):
+    """Where a chunk spends its time: the default path's (200 steps), and a
+    20-step slice chunk at the slice journey's end."""
+    import dataclasses
+    import torch
+    from lisp_mcmc_torch import kernel
+
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
+    _profile_chunks("profile_default_chunk", w._runner(with_history=True), w.state,
+                    w.generator)
+    sw = slice_walker
+    cfg = dataclasses.replace(sw.config, kernel="slice", chunk_size=SLICE_POLL_STEPS)
+    run, _ = kernel.build_chunk_runner(sw._batched_posterior(), sw.ndim, cfg)
+    _profile_chunks("profile_slice_chunk", run, sw.state, sw.generator,
+                    args=(True, True, True))
 
 
 def main():
@@ -1001,10 +1274,25 @@ def main():
     chunk_launches = phase_chunk_journey(counters)
     phase_nv(ceilings, counters)
     phase_nv_chunk(ceilings, counters, ptxas)
-    phase_profile()
+    half = phase_half_width(ceilings)
+    phase_tempered(ceilings, counters)
+    ensemble, slice_walker = phase_ensemble(counters)
+    phase_slice_poll(slice_walker)
+    phase_profile(slice_walker)
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
+    # kernel 1 on the red-black samplers' half-ensembles: launches on the
+    # three ensemble journeys (less each fit's full-width probe)
+    h = half["half"]
+    kernels.append({
+        "name": "fused_posterior_half", "route": "cuda",
+        "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+        "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
+        "launches": sum(r["launches"]["fused_posterior"] - 1 for r in ensemble.values()),
+        "max_abs_err": h["max_abs_err"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+        **{k: h[k] for k in ("bound_ms", "bound_by", "opmix_bound_ms")},
+        "library_ms": None})
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

@@ -59,11 +59,12 @@ def state_from_numpy(arrays: Mapping, dtype=torch.float64,
     """``(WalkerState, generator seed)`` from a state's arrays.
 
     ``arrays`` holds ``position, logprob, best_position, best_logprob,
-    l_matrix, m_sum, m_outer, m_count`` (the JAX ``WalkerState`` layout,
-    one adaptation group), optionally ``age``, ``anneal_step`` and ``key``
-    (the raw key words, e.g. ``jax.random.key_data(state.key)``).  The
-    state does not depend on the fit's terms: a global fit's carries
-    across as a one-term fit's does.
+    l_matrix, m_sum, m_outer, m_count`` (the JAX ``WalkerState`` layout:
+    G adaptation groups, G read from ``l_matrix`` (G, d, d); a (d, d) L
+    is one group), optionally ``age``, ``anneal_step`` and ``key`` (the
+    raw key words, e.g. ``jax.random.key_data(state.key)``).  The state
+    does not depend on the fit's terms: a global fit's carries across as
+    a one-term fit's does.
     """
     device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
@@ -71,13 +72,14 @@ def state_from_numpy(arrays: Mapping, dtype=torch.float64,
     if t["l_matrix"].ndim == 2:
         t["l_matrix"] = t["l_matrix"][None]
     W, d = t["position"].shape
+    G = t["l_matrix"].shape[0]
     shapes = {"logprob": (W,), "best_position": (W, d), "best_logprob": (W,),
-              "l_matrix": (1, d, d), "m_sum": (1, d), "m_outer": (1, d, d),
-              "m_count": (1,)}
+              "l_matrix": (G, d, d), "m_sum": (G, d), "m_outer": (G, d, d),
+              "m_count": (G,)}
     bad = {k: tuple(t[k].shape) for k, s in shapes.items() if tuple(t[k].shape) != s}
     if bad:
-        raise ValueError(f"state_from_numpy: with position ({W}, {d}) and one "
-                         f"adaptation group, these arrays are misshapen: {bad}")
+        raise ValueError(f"state_from_numpy: with position ({W}, {d}) and {G} "
+                         f"adaptation group(s), these arrays are misshapen: {bad}")
     state = WalkerState(**t, age=int(arrays.get("age", 0)),
                         anneal_step=int(arrays.get("anneal_step", 0)))
     return state, _seed_from_key(arrays.get("key"))
@@ -97,7 +99,9 @@ def walker_from_numpy(arrays: Mapping, datasets=None, **create_kwargs):
     per term, the datasets the state was made on (a JAX walker's, padded
     and masked), installed in place of those built from ``data``.
     ``arrays["keys"]`` (optional): the parameter order of the state's
-    columns, which must be the walker's.
+    columns, which must be the walker's.  ``arrays["group_ids"]``
+    (optional, (W,)): the walkers' adaptation groups, as many as the
+    state's L has; without it a grouped state (G > 1) is refused.
     """
     from .fit import walker_create
 
@@ -115,5 +119,17 @@ def walker_from_numpy(arrays: Mapping, datasets=None, **create_kwargs):
             term.dataset = dataset_from_numpy(fields, dtype=w.dtype, device=w.device)
         w._runner_cache.clear()
     w.state, seed = state_from_numpy(arrays, dtype=w.dtype, device=w.device)
+    n_groups = w.state.l_matrix.shape[0]
+    group_ids = arrays.get("group_ids")
+    if group_ids is not None:
+        group_ids = np.asarray(group_ids, np.int64)
+        if group_ids.shape != (n_walkers,) or group_ids.min() < 0 \
+                or group_ids.max() >= n_groups:
+            raise ValueError(f"walker_from_numpy: group_ids must be ({n_walkers},) "
+                             f"in [0, {n_groups})")
+    elif n_groups > 1:
+        raise ValueError(f"walker_from_numpy: the state has {n_groups} adaptation "
+                         "groups but no group_ids")
+    w.group_ids, w.n_groups = group_ids, n_groups
     w.generator.manual_seed(seed)
     return w

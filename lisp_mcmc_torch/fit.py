@@ -1,7 +1,7 @@
 """High-level fitting API: Walker facade, adaptive loop, mcmc_fit.
 
-Port of the main path of ``lisp_mcmc_tpu/fit.py``, the reference's L4
-layer (mcmc-fitting.lisp):
+Port of ``lisp_mcmc_tpu/fit.py``'s gradient-free verbs, the reference's
+L4 layer (mcmc-fitting.lisp):
   - ``walker-create`` (1132-1163): normalize fn/data/error/likelihood/prior
     to parallel lists, resolve data-dependent closures, evaluate the first
     step;
@@ -12,7 +12,12 @@ layer (mcmc-fitting.lisp):
   - ``walker-many-steps`` (849-853): fixed-L stepping;
   - ``walker-get`` / ``walker-modify`` (487-580): query and mutation verbs,
     and ``walker-with-exp`` (1052-1064);
-  - ``mcmc-fit`` (1165-1176): create + adaptive steps.
+  - ``mcmc-fit`` (1165-1176): create + adaptive steps;
+and the JAX package's adaptation groups (``group_ids``, ``n_groups``),
+``tempered_steps`` (parallel tempering, ``auto_ladder``, ``swap_rates``,
+``respace_ladder``) and ``sampling_steps`` with the stretch, demc and slice
+samplers.  Per-walker ``aux`` data (``batched.py``) and the gradient
+samplers are not ported yet.
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -31,8 +36,8 @@ import torch
 from . import control
 from .data import Dataset, clean_data, clean_data_error
 from .device import resolve_device
-from .kernel import (FitConfig, _neg_floor, build_chunk_runner, init_state,
-                     resolve_accept_band)
+from .kernel import (ENSEMBLE_KERNELS, FitConfig, _neg_floor, build_chunk_runner,
+                     init_state, resolve_accept_band, rung_betas)
 from .likelihoods import log_likelihood_normal, resolve_likelihood
 from .ops.chunk_kernel import build_chunk_kernel, chunk_coverage
 from .ops.linalg import cholesky_clamped
@@ -41,7 +46,7 @@ from .ops.loglik_kernel import (fused_posterior, kernel_coverage, posterior_rel_
 from .params import ParamSpec, normalize_params
 from .priors import log_prior_flat, resolve_prior
 
-__all__ = ["Walker", "walker_create", "mcmc_fit"]
+__all__ = ["Walker", "walker_create", "mcmc_fit", "respace_ladder"]
 
 
 def _force_list(item):
@@ -112,18 +117,21 @@ class Walker:
     ``most_likely_step``, ``most_likely_params``, ``median_params``,
     ``mean_params``, ``stddev_params``, ``acceptance``, ``steps``,
     ``log_likelihoods``, ``param_trace``, ``covariance_matrix``,
-    ``l_matrix_estimate``, ``with_expression``.  Mutation verbs
-    (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
+    ``l_matrix_estimate``, ``with_expression``, ``swap_rates``.  Mutation
+    verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
     ``burn_steps``, ``keep_steps``, ``delete``.
+
+    ``group_ids`` (W,) and ``n_groups`` split the walkers into adaptation
+    groups, each with its own L, moments and acceptance window.
     """
 
     def __init__(self, terms: list[_Term], spec: ParamSpec, initial_vector, *,
                  n_walkers: int = 1, seed: int = 0, walker_jitter: float = 0.0,
                  config: FitConfig | None = None, dtype=None, device=None,
                  aux=None, group_ids=None, n_groups: int = 1):
-        if aux is not None or group_ids is not None or n_groups != 1:
+        if aux is not None:
             raise NotImplementedError(
-                "per-walker aux data and adaptation groups are not ported yet")
+                "per-walker aux data is not ported yet (it waits for batched.py)")
         self.device = resolve_device(device)
         self.terms = terms
         self.spec = spec
@@ -131,6 +139,8 @@ class Walker:
         self.dtype = dtype or torch.float32
         self.n_walkers = int(n_walkers)
         self._runner_cache: dict[Any, Any] = {}
+        self.group_ids = None if group_ids is None else np.asarray(group_ids, np.int64)
+        self.n_groups = int(n_groups)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
@@ -159,7 +169,10 @@ class Walker:
         self._log_post = self._build_log_posterior()
         logprob = self._eval_batch(position)
         l0 = self._initial_l_matrix(vec)
-        self.state = init_state(position, logprob, l0)
+        if self.group_ids is not None and self.group_ids.shape != (self.n_walkers,):
+            raise ValueError(f"group_ids has shape {self.group_ids.shape}, want "
+                             f"({self.n_walkers},)")
+        self.state = init_state(position, logprob, l0, n_groups=self.n_groups)
 
         # Host-side thinned history (the walker's "walk", 471).
         self._hist_positions: list[np.ndarray] = []  # each (K, W', d)
@@ -169,6 +182,9 @@ class Walker:
         self._accept_log: list = []
         self._lpmax_trace: list = []
         self._lpmean_trace: list = []
+        self._swap_trace: list = []                  # per-chunk (K-1,) swap rates
+        self._swap_betas: np.ndarray | None = None   # last tempered ladder
+        self.posterior_evals = 0                     # batched-posterior calls in chunks
 
     # ------------------------------------------------------------------ build
 
@@ -252,14 +268,19 @@ class Walker:
 
     def _runner(self, greedy: bool = False, with_history: bool = True):
         cfg = dataclasses.replace(self.config, greedy=greedy)
-        cache_key = (cfg, with_history)
+        if cfg.tempering_rungs > 1:
+            # The ladder replaces the n_steps-dependent schedule: runs of
+            # any length share one runner.
+            cfg = dataclasses.replace(cfg, n_steps=0)
+        cache_key = (cfg, with_history, self.n_groups,
+                     None if self.group_ids is None else self.group_ids.tobytes())
         if cache_key not in self._runner_cache:
             chunk = None
             if cfg.posterior_impl == "chunk_kernel" and not with_history:
                 # Non-history chunks run as one kernel launch each; history
                 # chunks keep the per-step path.  The probe gates it too.
                 reason = chunk_coverage(self.terms, self.spec, cfg,
-                                        self.n_walkers, self.dtype)
+                                        self.n_walkers, self.dtype, self.n_groups)
                 if reason is not None:
                     raise ValueError("posterior_impl='chunk_kernel': the fit is "
                                      f"outside the chunk kernel's coverage: {reason}")
@@ -268,7 +289,7 @@ class Walker:
                                            self.n_walkers, self.dtype)
             run, run_hist = build_chunk_runner(
                 self._batched_posterior(), self.spec.ndim, cfg,
-                chunk_kernel=chunk)
+                chunk_kernel=chunk, group_ids=self.group_ids, n_groups=self.n_groups)
             self._runner_cache[cache_key] = run_hist if with_history else run
         return self._runner_cache[cache_key]
 
@@ -326,12 +347,34 @@ class Walker:
                 f"auto={cfg.auto!r} computes split R-hat from the retained "
                 "walker history; run with collect_history=True (or another "
                 "auto mode)")
+        if cfg.kernel in ENSEMBLE_KERNELS and not cfg.greedy:
+            # Ensemble moves cannot create spread they lack: a coordinate
+            # every walker of a group agrees on stays frozen, at
+            # acceptance 1 (walker_jitter=0, reset_to_most_likely).
+            pos = self.state.position
+            if self.group_ids is not None and self.n_groups:
+                pos = pos.reshape(self.n_groups, -1, self.ndim)
+            else:
+                pos = pos[None]
+            if bool(((pos.amax(dim=1) - pos.amin(dim=1)) == 0).any()):
+                raise ValueError(
+                    f"{cfg.kernel} kernel: the ensemble has zero spread in "
+                    "at least one coordinate (per adaptation group), which "
+                    "ensemble moves can never escape — create the walker "
+                    "with walker_jitter > 0 AND nonzero initial guesses "
+                    "(the jitter is multiplicative, so a parameter guessed "
+                    "at exactly 0 stays 0 for every walker), or run an rwm "
+                    "anneal first (after reset_to_most_likely, take some "
+                    "rwm steps before switching kernels)")
         # Each adaptive run gets a fresh annealing clock (919-921).
         self.state = dataclasses.replace(self.state, anneal_step=0)
         settle = cfg.steps_to_settle(self.ndim)
         chunk = cfg.chunk_size
         n_chunks = max(1, math.ceil(cfg.n_steps / chunk))
-        shutdown_chunks = max(1, math.ceil(max(2000, settle) / chunk))
+        # A tempered search keeps its ladder for the whole budget: no cold
+        # finish.
+        shutdown_chunks = (0 if cfg.tempering_rungs > 1
+                           else max(1, math.ceil(max(2000, settle) / chunk)))
         runner = self._runner(greedy=False, with_history=collect_history)
 
         shutting_down = False
@@ -422,6 +465,9 @@ class Walker:
         self._accept_log.append(out["accept_rate"])
         self._lpmax_trace.append(out["logprob_max"])
         self._lpmean_trace.append(out["logprob_mean"])
+        self.posterior_evals += out["posterior_evals"]
+        if "swap_rate" in out:
+            self._swap_trace.append(out["swap_rate"])   # device (K-1,)
         # Only the last few settle windows are ever read.
         max_trace_chunks = max(
             1, 4 * max(self.config.steps_to_settle(self.ndim), 2500)
@@ -430,6 +476,8 @@ class Walker:
             del self._lpmax_trace[:-max_trace_chunks]
             del self._lpmean_trace[:-max_trace_chunks]
             del self._accept_log[:-max_trace_chunks]
+        if len(self._swap_trace) > 2 * max_trace_chunks:
+            del self._swap_trace[:-max_trace_chunks]
         if "positions" in out:
             if "copied" in out:
                 out["copied"].synchronize()
@@ -502,7 +550,7 @@ class Walker:
         l = torch.as_tensor(np.asarray(_host(l_matrix), np.float64),
                             dtype=self.dtype, device=self.device)
         if l.ndim == 2:
-            l = l[None]
+            l = l.expand(self.n_groups, *l.shape).clone()
         self.state = dataclasses.replace(self.state, l_matrix=l)
 
     def many_steps(self, n: int, l_matrix=None):
@@ -524,6 +572,109 @@ class Walker:
                 self.state, out = runner(self.state, False, False, True,
                                          generator=self.generator)
                 self._record_chunk(self._stage_history(out))
+
+    def tempered_steps(self, n: int, rungs: int = 8, t_max: float | None = None,
+                       collect_history: bool = False, betas=None,
+                       auto_ladder: bool = False):
+        """Parallel-tempering search phase (replica exchange; JAX
+        ``Walker.tempered_steps``, fit.py:790-901).
+
+        Splits the ensemble into ``rungs`` contiguous blocks on a
+        temperature ladder from 1 to ``t_max`` (default: the config
+        temperature, at least 10), geometric unless ``betas`` gives it
+        (descending from 1.0); each rung is an adaptation group, and
+        adjacent rungs swap replicas at every chunk end.  ``logprob``
+        stays untempered, so best-step tracking is exact; history mixes
+        temperatures and is off by default.  ``auto_ladder`` runs a pilot
+        (about a fifth of ``n``) on the starting ladder, re-spaces the
+        rungs by the measured swap rates (:func:`respace_ladder`) and runs
+        the rest on the new ladder; with ``collect_history`` it drops the
+        pilot's history.  Afterwards the ensemble is one group again with
+        the cold rung's L.
+        """
+        if self.group_ids is not None:
+            raise ValueError("tempering is unavailable for batched/grouped fits")
+        K = int(rungs)
+        if K < 2 or self.n_walkers % K:
+            raise ValueError(f"rungs must be >= 2 and divide n_walkers={self.n_walkers}")
+        prev_config, prev_groups = self.config, (self.group_ids, self.n_groups)
+        d = self.ndim
+        kw = dict(dtype=self.dtype, device=self.device)
+        try:
+            # One adaptation group per rung: widen the group-axis state.
+            self.group_ids = np.repeat(np.arange(K), self.n_walkers // K)
+            self.n_groups = K
+            self.state = dataclasses.replace(
+                self.state, l_matrix=self.state.l_matrix[0].expand(K, d, d).clone(),
+                m_sum=torch.zeros((K, d), **kw), m_outer=torch.zeros((K, d, d), **kw),
+                m_count=torch.zeros((K,), **kw))
+            self.config = dataclasses.replace(
+                self.config, tempering_rungs=K, kernel="rwm", n_steps=int(n), auto=None,
+                temperature=float(t_max if t_max is not None
+                                  else max(self.config.temperature, 10.0)),
+                tempering_betas=tuple(float(b) for b in betas) if betas is not None else ())
+            self._swap_trace = []
+            self._swap_betas = rung_betas(self.config)
+            if auto_ladder:
+                # A pilot on the starting ladder, without history, then the
+                # rest on the ladder its swap rates give.
+                chunk = self.config.chunk_size
+                n_pilot = min(max(8 * chunk, int(n) // 5), max(chunk, int(n) // 2))
+                n_pilot = max(2 * chunk, (n_pilot // chunk) * chunk)
+                self.config = dataclasses.replace(self.config, n_steps=int(n_pilot))
+                self._adaptive_loop(self.config, False, False)
+                new_betas = respace_ladder(self._swap_betas,
+                                           self.swap_rates()["pair_rates"])
+                self._swap_trace = []
+                self._swap_betas = new_betas
+                if collect_history:
+                    self.reset()
+                self.config = dataclasses.replace(
+                    self.config, n_steps=int(max(chunk, int(n) - n_pilot)),
+                    tempering_betas=tuple(float(b) for b in new_betas))
+            self._adaptive_loop(self.config, collect_history, False)
+        finally:
+            self.config = prev_config
+            self.group_ids, self.n_groups = prev_groups
+            # Collapse the group axis back: keep the cold rung's proposal.
+            self.state = dataclasses.replace(
+                self.state, l_matrix=self.state.l_matrix[:1],
+                m_sum=torch.zeros((1, d), **kw), m_outer=torch.zeros((1, d, d), **kw),
+                m_count=torch.zeros((1,), **kw))
+
+    def swap_rates(self) -> dict:
+        """Replica-exchange diagnostics of the last tempered run (JAX
+        ``Walker.swap_rates``, fit.py:924-949): ``{"betas": (K,),
+        "pair_rates": (K-1,), "min_rate", "ok"}``.  ``pair_rates[k]`` is
+        the swap acceptance between rungs k and k+1 over the chunks where
+        the pair was active; a pair near 0 is a gap in the ladder, near 1
+        a wasted rung.  ``ok``: every pair above 0.05."""
+        if not self._swap_trace or self._swap_betas is None:
+            raise ValueError("swap_rates: no tempered run recorded — call "
+                             "tempered_steps first")
+        rates = np.nanmean(np.stack([_host(r).astype(np.float64)
+                                     for r in self._swap_trace]), axis=0)
+        return {"betas": self._swap_betas.copy(), "pair_rates": rates,
+                "min_rate": float(np.nanmin(rates)),
+                "ok": bool(np.nanmin(rates) > 0.05)}
+
+    def sampling_steps(self, n: int, kernel: str = "mala", **kwargs):
+        """Cold sampling phase at T=1 with the given kernel (JAX
+        ``Walker.sampling_steps``, fit.py:986-1017): after an anneal, draw
+        posterior samples with ``kernel="stretch"`` (affine-invariant
+        moves), ``"demc"`` (differential evolution) or ``"slice"``
+        (ensemble slice sampling), none of which has an L to adapt.
+        ``auto`` defaults to None; other keywords go to
+        :meth:`adaptive_steps`.  The default ``"mala"``, and ``"hmc"`` and
+        ``"chees"``, raise ``NotImplementedError`` until the gradient
+        samplers are ported (ROADMAP.md)."""
+        prev_config = self.config
+        self.config = dataclasses.replace(self.config, kernel=kernel)
+        try:
+            self.adaptive_steps(n, temperature=1.0, auto=kwargs.pop("auto", None),
+                                **kwargs)
+        finally:
+            self.config = prev_config
 
     # ------------------------------------------------------------- query verbs
 
@@ -681,6 +832,30 @@ class Walker:
         pos, lp = self._history()
         self._hist_positions = [pos[-k:]]
         self._hist_logprobs = [lp[-k:]]
+
+
+def respace_ladder(betas, pair_rates, floor: float = 0.05) -> np.ndarray:
+    """Equalize the measured communication barrier over a tempering ladder
+    (JAX ``fit.respace_ladder``, fit.py:1576-1606).
+
+    Each adjacent pair's swap rejection ``1 - rate`` (at least ``floor``;
+    a NaN rate counts as ``1 - floor``) is the barrier in its interval;
+    the interior rungs move to equal barrier increments, interpolated in
+    log-beta, with the endpoints fixed and the descent kept strict.
+    """
+    betas = np.asarray(betas, np.float64)
+    rates = np.nan_to_num(np.asarray(pair_rates, np.float64), nan=1.0 - floor)
+    if rates.shape != (betas.size - 1,):
+        raise ValueError(f"respace_ladder: need {betas.size - 1} pair rates, "
+                         f"got {rates.shape}")
+    barrier = np.maximum(1.0 - rates, floor)
+    lam = np.concatenate([[0.0], np.cumsum(barrier)])
+    targets = np.linspace(0.0, lam[-1], betas.size)
+    out = np.exp(np.interp(targets, lam, np.log(betas)))
+    out[0], out[-1] = betas[0], betas[-1]
+    for i in range(1, out.size):               # strict descent guard
+        out[i] = min(out[i], out[i - 1] * (1.0 - 1e-9))
+    return out
 
 
 # ------------------------------------------------------------------ factories

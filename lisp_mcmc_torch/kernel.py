@@ -1,24 +1,33 @@
-"""The adaptive Metropolis-Hastings kernel: chunks of rwm steps + adaptation.
+"""The adaptive sampler kernels: chunks of steps + adaptation.
 
-Port of the rwm slice of ``lisp_mcmc_tpu/kernel.py``, the reference's hot
-loop (mcmc-fitting.lisp):
+Port of the gradient-free part of ``lisp_mcmc_tpu/kernel.py``, the
+reference's hot loop (mcmc-fitting.lisp):
   - ``walker-take-step`` (1072-1095): propose ``x + L z``, accept iff
     ``prob1 > prob0`` or ``(prob1-prob0)/T > log U(0,1)`` (1091-1092);
   - ``walker-pretend-take-step`` (1097-1122): the greedy variant;
   - ``walker-adaptive-steps-full`` (862-942): cosine-oscillating annealing
     (877-878), L adaptation every 200 steps with the 0.2-0.4 band and
     x0.1 / x1.9 rescales, covariance refresh with the Haario ``2.38^2/d``
-    factor applied to L (888-895).
+    factor applied to L (888-895);
+and the JAX package's own additions: adaptation groups (each with its L,
+moments and acceptance window; contiguous equal blocks as reshapes,
+irregular ``group_ids`` by ``index_add_`` and gathers), the
+``covariance_source="ensemble"`` refresh, parallel tempering (a rung per
+group, replica swaps at chunk ends) and the three red-black ensemble
+samplers ``stretch``, ``demc`` and ``slice``, whose half-ensembles go
+through the walker's batched posterior (the fused kernel on the GPU).
 
 The ensemble is a ``(W, d)`` batch; a chunk is a Python loop over
 ``chunk_size`` steps of tensor operations (where the JAX package scans),
 or one launch of the whole-chunk kernel (``ops/chunk_kernel.py``).
 Adaptation happens at the chunk boundary.  Nothing in a chunk waits for
-the device: the temperature and the step counters are host numbers, the
-flags are Python booleans and every data-dependent choice is a ``where``.
+the device: the temperature and the step counters are host numbers (the
+tempering ladder a tensor built once), the flags are Python booleans and
+every data-dependent choice is a ``where``; only the slice sampler's
+loops read "every walker done" back, every :data:`SLICE_POLL` iterations.
 
-This slice covers ``kernel="rwm"`` with one adaptation group, no
-tempering and no blocked proposals; those raise ``NotImplementedError``.
+The gradient samplers (mala, hmc, chees) and blocked proposals raise
+``NotImplementedError``; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -27,17 +36,28 @@ import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from .ops.chunk_kernel import chunk_rwm
 from .ops.linalg import cholesky_clamped, haario_scale, moments_covariance
 
 __all__ = ["FitConfig", "WalkerState", "init_state", "temperature_schedule",
-           "build_chunk_runner", "resolve_accept_band", "POSTERIOR_IMPLS"]
+           "build_chunk_runner", "resolve_accept_band", "rung_betas",
+           "POSTERIOR_IMPLS", "SLICE_POLL"]
 
 # "plain" is the JAX package's "xla", "kernel" its "pallas" and
 # "chunk_kernel" its "pallas_chunk".
 POSTERIOR_IMPLS = ("auto", "plain", "kernel", "chunk_kernel")
+
+# The slice sampler's expansion and shrinkage loops end when every walker
+# is done.  They read that flag back to the host every SLICE_POLL
+# iterations; 0 runs each loop's whole budget under masks and reads
+# nothing.  Every choice gives the same chains: an iteration after a
+# walker is done leaves it unchanged.
+SLICE_POLL = 1
+
+ENSEMBLE_KERNELS = ("stretch", "demc", "slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,10 +65,10 @@ class FitConfig:
     """All adaptation knobs, with the reference's exact defaults.
 
     The fields are the JAX package's ``FitConfig``; see its comments for
-    each.  This slice runs ``kernel="rwm"`` ungrouped; other samplers,
-    tempering and blocked proposals raise ``NotImplementedError`` when a
-    chunk runner is built.  ``prng_impl`` is kept for config parity and
-    not read: the port draws from a ``torch.Generator``.
+    each.  The gradient samplers (mala, hmc, chees) and blocked proposals
+    raise ``NotImplementedError`` when a chunk runner is built.
+    ``prng_impl`` is kept for config parity and not read: the port draws
+    from a ``torch.Generator``.
     """
 
     n_steps: int = 30000                 # walker-adaptive-steps default (946)
@@ -63,21 +83,22 @@ class FitConfig:
     temp_period: int = 5000              # annealing divisor (878)
     settle_multiplier: int = 10          # steps-to-settle = 10*max(50, d) (873)
     settle_floor: int = 50
-    kernel: str = "rwm"
-    stretch_a: float = 2.0
-    demc_gamma: float = 0.0
-    demc_jitter: float = 0.1
-    demc_jump_prob: float = 0.1
-    slice_mu: float = 1.0
-    slice_max_expand: int = 4
-    slice_max_shrink: int = 32
+    kernel: str = "rwm"                  # rwm | stretch | demc | slice (mala, hmc,
+                                         # chees: not ported yet)
+    stretch_a: float = 2.0               # stretch scale a: z ~ 1/sqrt(z) on [1/a, a]
+    demc_gamma: float = 0.0              # demc scale; 0 = 2.38/sqrt(2d)
+    demc_jitter: float = 0.1             # gamma (1 + U(-b, b))
+    demc_jump_prob: float = 0.1          # share of gamma = 1 mode jumps
+    slice_mu: float = 1.0                # slice direction eta = mu (x_a - x_b)
+    slice_max_expand: int = 4            # stepping-out budget m (Neal 2003)
+    slice_max_shrink: int = 32           # shrinkage iterations before a walker stays put
     hmc_leapfrog: int = 8
     hmc_jitter: bool = True
     chees_max_leapfrog: int = 64
     chees_lr: float = 0.025
     rescue: bool = True
-    tempering_rungs: int = 0
-    tempering_betas: tuple = ()
+    tempering_rungs: int = 0             # > 1: a temperature ladder, a rung per group
+    tempering_betas: tuple = ()          # explicit ladder, descending from 1.0
     auto: str | None = "prob-settle"     # prob-settle | slope-settle | rhat | rank-rhat | None
     sampling_optimization: str = "covariance"  # "covariance" | "best-value" (888-895)
     refresh_every: int = 0               # in-band refresh cadence in steps; 0 = every chunk
@@ -88,12 +109,12 @@ class FitConfig:
     thin: int = 10                       # history thinning
     greedy: bool = False                 # pretend-take-step accept rule (1117)
     pooled_covariance: bool = True
-    covariance_source: str = "moves"     # "moves" (reference policy)
+    covariance_source: str = "moves"     # "moves" (reference policy) | "ensemble"
     jitter: float = 0.0                  # optional diagonal jitter on refresh
     posterior_impl: str = "auto"         # "auto" | "plain" | "kernel" (fused posterior,
                                          # ops/loglik_kernel.py) | "chunk_kernel" (whole-chunk
                                          # stepper, ops/chunk_kernel.py, for non-history
-                                         # chunks of f32 fits)
+                                         # chunks of ungrouped f32 rwm fits)
     prng_impl: str = "rbg"
     block_hyper: int = 0
     block_local: int = 0
@@ -126,8 +147,8 @@ class FitConfig:
 class WalkerState:
     """Ensemble chain state (the reference's ``walker`` struct, 467-479).
 
-    ``W`` walkers, ``d`` parameters, ``G`` adaptation groups (1 here).
-    The step counters are host integers; the random stream is the
+    ``W`` walkers, ``d`` parameters, ``G`` adaptation groups.  The step
+    counters are host integers; the random stream is the
     ``torch.Generator`` the caller passes to the runner.
     """
 
@@ -180,9 +201,33 @@ def temperature_schedule(i, ndim: int, config: FitConfig):
     return torch.where(i < ts, t, 1.0)
 
 
+def rung_betas(config: FitConfig) -> np.ndarray:
+    """The tempering ladder's inverse temperatures, cold rung first
+    (kernel.py:447-463 of the JAX package): ``tempering_betas`` when set
+    (checked: one per rung, strictly descending from 1.0 to > 0), else
+    the geometric ``T_k = temperature^(k/(K-1))``."""
+    K = config.tempering_rungs
+    if config.tempering_betas:
+        betas = np.asarray(config.tempering_betas, np.float64)
+        if betas.shape != (K,):
+            raise ValueError(f"tempering_betas must have one entry per rung "
+                             f"({K}), got {betas.shape}")
+        if betas[0] != 1.0 or betas[-1] <= 0.0 or np.any(np.diff(betas) >= 0.0):
+            raise ValueError("tempering_betas must strictly descend from 1.0 to > 0")
+        return betas
+    return 1.0 / np.asarray([config.temperature ** (k / (K - 1)) for k in range(K)],
+                            np.float64)
+
+
 def _neg_floor(dtype) -> float:
     """Large-negative stand-in for -inf that keeps (lp1-lp0)/T finite."""
     return torch.finfo(dtype).min / 4
+
+
+def _finite(lp):
+    """A non-finite posterior is a hard reject (the
+    walker-check-for-complex-walks analogue, 483)."""
+    return torch.where(torch.isfinite(lp), lp, _neg_floor(lp.dtype))
 
 
 def resolve_accept_band(config: FitConfig) -> tuple[float, float]:
@@ -198,51 +243,143 @@ def resolve_accept_band(config: FitConfig) -> tuple[float, float]:
 
 
 def _check_scope(config: FitConfig) -> None:
-    if config.kernel != "rwm":
+    if config.kernel in ("mala", "hmc", "chees"):
         raise NotImplementedError(
-            f"kernel={config.kernel!r}: this port runs the rwm sampler only")
-    if config.tempering_rungs > 1:
-        raise NotImplementedError("parallel tempering is not ported yet")
+            f"kernel={config.kernel!r}: the gradient samplers are not ported "
+            "yet (ROADMAP.md, Queue 1 step 12, second half); this port runs "
+            "rwm, stretch, demc and slice")
     if config.block_count > 0:
-        raise NotImplementedError("blocked proposals are not ported yet")
-    if config.covariance_source != "moves":
         raise NotImplementedError(
-            f"covariance_source={config.covariance_source!r}: only 'moves' "
-            "is ported")
+            "blocked proposals are not ported yet (ROADMAP.md, Queue 1 step 12)")
     if config.sampling_optimization not in ("covariance", "best-value"):
         raise ValueError(f"unknown sampling_optimization "
                          f"{config.sampling_optimization!r}")
 
 
+def _contiguous_block(group_ids, n_groups: int) -> int | None:
+    """B when ``group_ids`` is ``repeat(arange(G), B)``, else None
+    (kernel.py:404-417 of the JAX package)."""
+    gi = np.asarray(group_ids)
+    if gi.shape[0] % n_groups:
+        return None
+    B = gi.shape[0] // n_groups
+    return B if (gi == np.repeat(np.arange(n_groups), B)).all() else None
+
+
 def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
-                       chunk_kernel=None):
+                       chunk_kernel=None, group_ids=None, n_groups: int = 1):
     """The chunk runners for a batched posterior ``eval_lp((W, d)) -> (W,)``.
 
     Returns ``(run, run_with_history)``; each maps ``(state, adapt_enabled,
     allow_refresh, force_cold=False, *, generator=None, noise=None)`` to
     ``(state, out)``.  ``force_cold`` True pins T=1 (the cold finish); a
-    float > 0 pins that temperature.  Draws come from ``generator``, or
-    from ``noise = (z (chunk, W, d), u (chunk, W))`` when given (the
-    injected-draw path the parity tests use).  ``chunk_kernel``: a built
-    ``ops.chunk_kernel.ChunkKernel`` that ``run`` uses for the whole chunk.
+    float > 0 pins that temperature.  ``group_ids``: (W,) walker ->
+    adaptation group (None: one group).  ``chunk_kernel``: a built
+    ``ops.chunk_kernel.ChunkKernel`` that ``run`` uses for the whole chunk
+    (ungrouped, untempered rwm only).  ``out["posterior_evals"]`` counts
+    the calls of ``eval_lp`` in the chunk.
+
+    Draws come from ``generator``, or from ``noise`` (the injected-draw
+    path the parity tests use), laid out per step ``i`` of the chunk and,
+    for the red-black samplers, per half ``h`` (0: the low half, updated
+    first) on the ``(G, Bh)`` half-ensemble (``G = 1, Bh = W/2`` ungrouped):
+
+    - rwm: ``(z (chunk, W, d), u (chunk, W))``, with a third entry
+      ``swap (K-1, B)`` under tempering: the chunk end's swap uniforms;
+    - stretch: ``{"j"`` partner index in [0, Bh), ``"z"`` the uniform
+      that draws z, ``"u"`` the accept uniform``}``, each (chunk, 2, G, Bh);
+    - demc: ``"j"`` (chunk, 2, G, Bh, 2), the donor draws in [0, Bh) and
+      [0, Bh-1); ``"g"`` the jitter factor in [1-b, 1+b); ``"jump"`` the
+      uniform that picks a mode jump; ``"u"`` the accept uniform;
+    - slice: ``"j"`` as demc; ``"e"`` the level's uniform; ``"i"`` the
+      interval offset's uniform; ``"k"`` the left budget in [0, m);
+      ``"shrink"`` (chunk, 2, slice_max_shrink, G, Bh) the shrink uniforms.
     """
     _check_scope(config)
     chunk = config.chunk_size
     thin = max(1, min(config.thin, chunk))
     accept_low, accept_high = resolve_accept_band(config)
+    grouped = group_ids is not None and n_groups > 1
+    group_block = _contiguous_block(group_ids, n_groups) if grouped else None
+    gid = torch.as_tensor(np.asarray(group_ids), dtype=torch.int64) if grouped else None
+    sampler = "rwm" if config.greedy else config.kernel
+    ensemble = sampler in ENSEMBLE_KERNELS
+    tempered = config.tempering_rungs > 1 and not config.greedy
+    if tempered:
+        if sampler != "rwm":
+            raise ValueError("parallel tempering is a search phase; use kernel='rwm' "
+                             "(sample afterwards with sampling_steps)")
+        if group_block is None or n_groups != config.tempering_rungs:
+            raise ValueError("tempering requires contiguous equal walker blocks, one "
+                             "adaptation group per rung (use Walker.tempered_steps)")
+        betas = rung_betas(config)
+        rung_temps = 1.0 / betas
+        dbeta_np = betas[:-1] - betas[1:]
+    if ensemble and grouped and group_block is None:
+        raise ValueError(f"{sampler} kernel needs contiguous equal-size walker blocks "
+                         "per adaptation group (complementary halves must stay "
+                         "within a group)")
+    if chunk_kernel is not None and (grouped or tempered or sampler != "rwm"):
+        raise ValueError("the chunk kernel runs ungrouped, untempered rwm chunks")
+    cache: dict[Any, torch.Tensor] = {}
+
+    def on(t, ref):
+        """``t`` (built on the CPU once) on ``ref``'s device."""
+        key = (id(t), ref.device)
+        if key not in cache:
+            cache[key] = t.to(ref.device)
+        return cache[key]
+
+    def seg_sum(x):
+        """Sum per adaptation group: (W, ...) -> (G, ...)."""
+        if group_block is not None:
+            return x.reshape((n_groups, group_block) + x.shape[1:]).sum(dim=1)
+        if grouped:
+            out = torch.zeros((n_groups,) + x.shape[1:], dtype=x.dtype, device=x.device)
+            return out.index_add_(0, on(gid, x), x)
+        return x.sum(dim=0)[None]
+
+    def seg_outer(v):
+        """Per-group sum of outer products: (W, d) -> (G, d, d)."""
+        if group_block is not None:
+            vg = v.reshape(n_groups, group_block, ndim)
+            return torch.bmm(vg.transpose(1, 2), vg)
+        if grouped:
+            return seg_sum(v[:, :, None] * v[:, None, :])
+        return torch.einsum("wi,wj->ij", v, v)[None]
+
+    def per_walker(g):
+        """A per-group (G, ...) tensor at each walker: (W, ...)."""
+        if group_block is not None:
+            return g.repeat_interleave(group_block, dim=0)
+        if grouped:
+            return g[on(gid, g)]
+        return g[0]
+
+    def mul_l(l_matrix, z):
+        """L z per walker, each with its group's L."""
+        if group_block is not None:
+            zg = z.reshape(n_groups, group_block, ndim)
+            return torch.bmm(zg, l_matrix.transpose(1, 2)).reshape(z.shape)
+        if grouped:
+            return torch.einsum("wij,wj->wi", l_matrix[on(gid, z)], z)
+        return z @ l_matrix[0].T
 
     def _apply_step(state, proposal, lp_prop, step_vec, accept):
-        """Accept/update tail: position, moment sums, best tracking."""
+        """Accept/update tail: position, moment sums, best tracking.
+        ``step_vec`` None: an L-free sampler, no moments."""
         dtype = state.position.dtype
         acc = accept[:, None]
         accf = accept.to(dtype)
         new_position = torch.where(acc, proposal, state.position)
         new_logprob = torch.where(accept, lp_prop, state.logprob)
-        # Accepted-move moments for covariance adaptation (one group).
-        delta = step_vec * acc.to(dtype)
-        m_sum = state.m_sum + delta.sum(dim=0)[None]
-        m_outer = state.m_outer + torch.einsum("wi,wj->ij", delta, delta)[None]
-        m_count = state.m_count + accf.sum()[None]
+        m_sum, m_outer, m_count = state.m_sum, state.m_outer, state.m_count
+        if step_vec is not None:
+            # Accepted-move moments for covariance adaptation, per group.
+            delta = step_vec * acc.to(dtype)
+            m_sum = m_sum + seg_sum(delta)
+            m_outer = m_outer + seg_outer(delta)
+            m_count = m_count + seg_sum(accf)
         # Most-likely-step tracking (553-555), per walker.
         better = new_logprob > state.best_logprob
         best_position = torch.where(better[:, None], new_position,
@@ -261,13 +398,21 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
     def resolve_temp(force_cold, state):
         """``force_cold`` True (== 1.0) pins T=1, a float > 0 pins that
         temperature, False follows the annealing schedule indexed by the
-        per-run counter (mcmc-fitting.lisp:902, 919-921)."""
+        per-run counter (mcmc-fitting.lisp:902, 919-921); under tempering
+        it is each walker's rung temperature, a (W,) tensor."""
         tover = float(force_cold)
         if tover > 0:
             return tover
+        if tempered:
+            key = ("ladder", state.position.dtype, state.position.device)
+            if key not in cache:
+                cache[key] = torch.as_tensor(
+                    rung_temps, dtype=state.position.dtype,
+                    device=state.position.device).repeat_interleave(group_block)
+            return cache[key]
         return float(temperature_schedule(state.anneal_step, ndim, config))
 
-    def one_step(state, i, force_cold, generator, noise):
+    def one_step(state, i, force_cold, generator, noise, evals):
         W, d = state.position.shape
         kw = dict(dtype=state.position.dtype, device=state.position.device)
         temp = resolve_temp(force_cold, state)
@@ -276,13 +421,10 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             u = torch.rand((W,), generator=generator, **kw)
         else:
             z, u = noise[0][i], noise[1][i]
-        step_vec = z @ state.l_matrix[0].T
+        step_vec = mul_l(state.l_matrix, z)
         proposal = state.position + step_vec
-        lp_prop = eval_lp(proposal)
-        # NaN/Inf guard (the walker-check-for-complex-walks analogue, 483):
-        # a non-finite posterior is a hard reject.
-        lp_prop = torch.where(torch.isfinite(lp_prop), lp_prop,
-                              _neg_floor(lp_prop.dtype))
+        lp_prop = _finite(eval_lp(proposal))
+        evals[0] += 1
         log_u = torch.log(u)
         if config.greedy:
             accept = lp_prop > state.logprob               # (1117-1119)
@@ -290,6 +432,185 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             accept = ((lp_prop > state.logprob)            # (1091-1092)
                       | ((lp_prop - state.logprob) / temp > log_u))
         return _apply_step(state, proposal, lp_prop, step_vec, accept)
+
+    # ---- the red-black ensemble samplers (kernel.py:804-1142) ----
+
+    def halves_layout(W):
+        """(G, B) of the red-black halves, checked (kernel.py:489-513,
+        825-829, 913-923 of the JAX package)."""
+        G, B = (n_groups, group_block) if group_block is not None else (1, W)
+        if B % 2:
+            raise ValueError(f"{sampler} kernel needs an even number of walkers "
+                             "per group")
+        if B - 1 < ndim:
+            # B points span at most a (B-1)-dim affine subspace: the fit
+            # would sample a slice of the posterior.
+            raise ValueError(
+                f"{sampler} kernel: {B} walkers per group span at most a "
+                f"{B - 1}-dim affine subspace of the {ndim}-dim posterior — "
+                f"the fit would silently sample a slice. Use > {ndim} "
+                f"(recommended >= {2 * ndim}) walkers per group, or the rwm "
+                "kernel")
+        if sampler != "stretch" and B // 2 < 2:
+            raise ValueError(f"{sampler} kernel needs >= 4 walkers per group (two "
+                             "distinct complementary donors per proposal)")
+        return G, B
+
+    def draw(step_noise, name, h, make):
+        return make() if step_noise is None else step_noise[name][h]
+
+    def gather(comp, j):
+        """comp[g, j[g, b]] for a (G, Bh, d) half and (G, Bh) indices."""
+        return torch.gather(comp, 1, j[..., None].expand(-1, -1, ndim))
+
+    def donors(comp, j):
+        """Two distinct donors (kernel.py:931-937): j2 = (j1 + 1 + U[0, Bh-2]) mod Bh."""
+        Bh = comp.shape[1]
+        j1 = j[..., 0]
+        j2 = (j1 + 1 + j[..., 1]) % Bh
+        return gather(comp, j1), gather(comp, j2)
+
+    def donor_draws(comp, generator, step_noise, h):
+        G, Bh = comp.shape[:2]
+
+        def make():
+            dev = comp.device
+            return torch.stack([
+                torch.randint(0, Bh, (G, Bh), generator=generator, device=dev),
+                torch.randint(0, Bh - 1, (G, Bh), generator=generator, device=dev)],
+                dim=-1)
+        return draw(step_noise, "j", h, make)
+
+    def half_stretch(h, xk, lpk, comp, temp, generator, step_noise, eval_half):
+        G, Bh = lpk.shape
+        kw = dict(dtype=lpk.dtype, device=lpk.device)
+        a = config.stretch_a
+        j = draw(step_noise, "j", h, lambda: torch.randint(
+            0, Bh, (G, Bh), generator=generator, device=lpk.device))
+        xj = gather(comp, j)
+        u = draw(step_noise, "z", h, lambda: torch.rand((G, Bh), generator=generator, **kw))
+        # Inverse-CDF draw of g(z) ∝ 1/sqrt(z) on [1/a, a].
+        z = ((a - 1.0) * u + 1.0) ** 2 / a
+        prop = xj + z[..., None] * (xk - xj)
+        lp_prop = eval_half(prop)
+        log_alpha = (ndim - 1.0) * torch.log(z) + (lp_prop - lpk) / temp
+        ua = draw(step_noise, "u", h, lambda: torch.rand((G, Bh), generator=generator, **kw))
+        return prop, lp_prop, torch.log(ua) < log_alpha
+
+    def half_demc(h, xk, lpk, comp, temp, generator, step_noise, eval_half):
+        G, Bh = lpk.shape
+        kw = dict(dtype=lpk.dtype, device=lpk.device)
+        gamma0 = config.demc_gamma if config.demc_gamma > 0.0 else 2.38 / math.sqrt(2.0 * ndim)
+        b = config.demc_jitter
+        xa, xb = donors(comp, donor_draws(comp, generator, step_noise, h))
+        u = draw(step_noise, "g", h, lambda: (1.0 - b) + 2.0 * b * torch.rand(
+            (G, Bh), generator=generator, **kw))
+        jump = draw(step_noise, "jump", h, lambda: torch.rand(
+            (G, Bh), generator=generator, **kw)) < config.demc_jump_prob
+        gamma = torch.where(jump, 1.0, gamma0 * u)
+        prop = xk + gamma[..., None] * (xa - xb)
+        lp_prop = eval_half(prop)
+        ua = draw(step_noise, "u", h, lambda: torch.rand((G, Bh), generator=generator, **kw))
+        return prop, lp_prop, torch.log(ua) < (lp_prop - lpk) / temp
+
+    def half_slice(h, xk, lpk, comp, temp, generator, step_noise, eval_half):
+        """Ensemble slice sampling along a donor-pair difference
+        (kernel.py:1030-1128): level, Neal's budgeted stepping-out,
+        shrinkage; a walker that does not land stays put."""
+        G, Bh = lpk.shape
+        kw = dict(dtype=lpk.dtype, device=lpk.device)
+        m_exp, m_shr = int(config.slice_max_expand), int(config.slice_max_shrink)
+        xa, xb = donors(comp, donor_draws(comp, generator, step_noise, h))
+        raw = xa - xb
+        # Outlier-donor clamp to 3x the group's median norm.  The median of
+        # an even count is the mean of the two middle values, as jnp.median
+        # takes it (torch.median would take the lower one).
+        nrm = torch.sqrt(torch.sum(raw * raw, dim=-1))               # (G, Bh)
+        srt = torch.sort(nrm, dim=1).values
+        med = (srt[:, (Bh - 1) // 2] + srt[:, Bh // 2])[:, None] * 0.5
+        floor = torch.finfo(lpk.dtype).tiny
+        clip = torch.clamp_max(3.0 * med / torch.clamp_min(nrm, floor), 1.0)
+        eta = config.slice_mu * raw * clip[..., None]
+
+        def eval_at(t):
+            return eval_half(xk + t[..., None] * eta)
+
+        e = -torch.log(draw(step_noise, "e", h, lambda: torch.rand(
+            (G, Bh), generator=generator, **kw)))
+        log_y = lpk / temp - e
+        lo = -draw(step_noise, "i", h, lambda: torch.rand((G, Bh), generator=generator, **kw))
+        hi = lo + 1.0
+        poll = SLICE_POLL
+        if m_exp > 1:
+            jb = draw(step_noise, "k", h, lambda: torch.randint(
+                0, m_exp, (G, Bh), generator=generator, device=lpk.device))
+            kb = (m_exp - 1) - jb
+            for it in range(m_exp - 1):
+                if poll and it and it % poll == 0 and not bool(((jb > 0) | (kb > 0)).any()):
+                    break
+                grow_l = (jb > 0) & (eval_at(lo) / temp > log_y)
+                grow_r = (kb > 0) & (eval_at(hi) / temp > log_y)
+                lo = torch.where(grow_l, lo - 1.0, lo)
+                hi = torch.where(grow_r, hi + 1.0, hi)
+                # The budget zeroes on the first non-grow (Neal's while loop).
+                jb = torch.where(grow_l, jb - 1, 0)
+                kb = torch.where(grow_r, kb - 1, 0)
+        # Shrinkage from t = 0 (stay at x): a walker that never lands is a
+        # rejected step.
+        t_sel = torch.zeros_like(lpk)
+        lp_sel = lpk
+        done = torch.zeros(lpk.shape, dtype=torch.bool, device=lpk.device)
+        for it in range(m_shr):
+            if poll and it and it % poll == 0 and bool(done.all()):
+                break
+            u = (torch.rand((G, Bh), generator=generator, **kw) if step_noise is None
+                 else step_noise["shrink"][h][it])
+            t = lo + u * (hi - lo)
+            lpc = eval_at(t)
+            ok = lpc / temp > log_y
+            newly = ok & ~done
+            t_sel = torch.where(newly, t, t_sel)
+            lp_sel = torch.where(newly, lpc, lp_sel)
+            still = ~(done | ok)
+            lo = torch.where(still & (t < 0.0), t, lo)
+            hi = torch.where(still & (t >= 0.0), t, hi)
+            done = done | ok
+        return xk + t_sel[..., None] * eta, lp_sel, done
+
+    HALF_STEPS = {"stretch": half_stretch, "demc": half_demc, "slice": half_slice}
+
+    def one_step_ensemble(state, i, force_cold, generator, noise, evals):
+        """One red-black step: the low half against the high half, then the
+        high half against the UPDATED low half (kernel.py:858-870)."""
+        W, d = state.position.shape
+        temp = resolve_temp(force_cold, state)
+        G, B = halves_layout(W)
+        Bh = B // 2
+        pos = state.position.reshape(G, B, d)
+        lp = state.logprob.reshape(G, B)
+        step_noise = None if noise is None else {k: v[i] for k, v in noise.items()}
+
+        def eval_half(x):
+            # A grouped half is a strided view; the kernel takes a
+            # contiguous (G * Bh, d) batch.
+            evals[0] += 1
+            return _finite(eval_lp(x.reshape(-1, d).contiguous())).reshape(G, Bh)
+
+        half = HALF_STEPS[sampler]
+        x_lo, l_lo = pos[:, :Bh], lp[:, :Bh]
+        x_hi, l_hi = pos[:, Bh:], lp[:, Bh:]
+        p_lo, lp_lo, a_lo = half(0, x_lo, l_lo, x_hi, temp, generator, step_noise,
+                                 eval_half)
+        x_lo_new = torch.where(a_lo[..., None], p_lo, x_lo)
+        p_hi, lp_hi, a_hi = half(1, x_hi, l_hi, x_lo_new, temp, generator, step_noise,
+                                 eval_half)
+        # Walkers come back in (group, half, index) order.
+        proposal = torch.cat([p_lo, p_hi], dim=1).reshape(W, d)
+        lp_prop = torch.cat([lp_lo, lp_hi], dim=1).reshape(W)
+        accept = torch.cat([a_lo, a_hi], dim=1).reshape(W)
+        return _apply_step(state, proposal, lp_prop, None, accept)
+
+    step_fn = one_step_ensemble if ensemble else one_step
 
     def adapt(state: WalkerState, group_accept, allow_refresh: bool):
         """Chunk-boundary L update (mcmc-fitting.lisp:929-942), batched over
@@ -303,18 +624,34 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
                                  (config.scale_down ** g) * state.l_matrix,
                                  (config.scale_up ** g) * state.l_matrix)
         if config.sampling_optimization == "best-value":
-            # 1e-5 x diag of the global best parameters' magnitudes (888-895).
-            w = torch.argmax(state.best_logprob)
-            mags = torch.abs(state.best_position[w])
+            # 1e-5 x diag of each group's best parameters' magnitudes
+            # (888-895); irregular groups take the global best.
+            if group_block is not None:
+                idx = torch.argmax(state.best_logprob.reshape(n_groups, group_block), dim=1)
+                best = state.best_position.reshape(n_groups, group_block, d)[
+                    torch.arange(n_groups, device=idx.device), idx]
+            else:
+                w = torch.argmax(state.best_logprob)
+                best = state.best_position[w].expand(n_groups, d)
+            mags = torch.abs(best)
             mags = torch.where(mags > 0, mags, 1e-3)
-            candidate = (1e-5 * torch.diag(mags))[None].to(dtype)
+            candidate = (1e-5 * torch.diag_embed(mags)).to(dtype)
             blended = (1.0 - g) * state.l_matrix + g * candidate if g < 1.0 else candidate
             l_refreshed = blended if allow_refresh else state.l_matrix
             new_l = torch.where(in_band[:, None, None], l_refreshed, l_rescaled)
             return dataclasses.replace(state, l_matrix=new_l.to(dtype))
 
-        cov = moments_covariance(state.m_sum, state.m_outer, state.m_count)
-        enough = state.m_count > d
+        if config.covariance_source == "ensemble":
+            # The ensemble's own spread per group (kernel.py:1537-1546).
+            ones = torch.ones_like(state.logprob)
+            counts = torch.clamp_min(seg_sum(ones), 1.0)                 # (G,)
+            mean = seg_sum(state.position) / counts[:, None]
+            centered = state.position - per_walker(mean)
+            cov = seg_outer(centered) / counts[:, None, None]
+            enough = counts > d
+        else:
+            cov = moments_covariance(state.m_sum, state.m_outer, state.m_count)
+            enough = state.m_count > d
         if config.jitter > 0:
             cov = cov + config.jitter * torch.eye(d, dtype=dtype, device=cov.device)
         chol, ok = cholesky_clamped(cov)                            # (G,d,d), (G,)
@@ -334,14 +671,51 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             m_count=torch.where(reset, 0.0, state.m_count),
         )
 
-    def _finish(state, accept_counts, trace, adapt_enabled, allow_refresh):
-        W = accept_counts.shape[0]
-        group_accept = accept_counts.sum()[None] / max(W * chunk, 1)   # (G,)
-        if adapt_enabled:
+    def replica_swap(state: WalkerState, force_cold, generator, noise):
+        """One replica-exchange round between adjacent rungs
+        (kernel.py:1878-1929): pairs (k, k+1) of the chunk's parity; walker
+        b of rung k swaps with walker b of rung k+1 with probability
+        ``min(1, exp((beta_k - beta_{k+1}) (logpi_{k+1} - logpi_k)))``.
+        Returns the state and each pair's swap rate (NaN when off parity)."""
+        dtype, dev = state.position.dtype, state.position.device
+        K, B = n_groups, group_block
+        pos = state.position.reshape(K, B, ndim)
+        lp = state.logprob.reshape(K, B)
+        parity = (state.age // chunk) % 2
+        # Every override makes the rungs equal-temperature, where dbeta = 0
+        # is the only valid swap.
+        dbeta = torch.as_tensor(dbeta_np, dtype=dtype, device=dev)
+        if float(force_cold) > 0:
+            dbeta = torch.zeros_like(dbeta)
+        log_alpha = dbeta[:, None] * (lp[1:] - lp[:-1])                   # (K-1, B)
+        u = (torch.rand((K - 1, B), generator=generator, dtype=dtype, device=dev)
+             if noise is None else noise[2])
+        pair_on = (torch.arange(K - 1, device=dev) % 2) == parity         # (K-1,)
+        do_swap = (torch.log(u) < log_alpha) & pair_on[:, None]
+        # Alternating parity makes the active pairs disjoint: one where-pass
+        # with rolled neighbours applies every swap.
+        no = torch.zeros((1, B), dtype=torch.bool, device=dev)
+        take_next = torch.cat([do_swap, no])
+        take_prev = torch.cat([no, do_swap])
+        new_pos = torch.where(take_next[:, :, None], torch.roll(pos, -1, 0),
+                              torch.where(take_prev[:, :, None], torch.roll(pos, 1, 0), pos))
+        new_lp = torch.where(take_next, torch.roll(lp, -1, 0),
+                             torch.where(take_prev, torch.roll(lp, 1, 0), lp))
+        swap_rate = torch.where(pair_on, do_swap.to(dtype).mean(dim=1), math.nan)
+        return dataclasses.replace(state, position=new_pos.reshape(state.position.shape),
+                                   logprob=new_lp.reshape(state.logprob.shape)), swap_rate
+
+    def _finish(state, accept_counts, trace, adapt_enabled, allow_refresh,
+                force_cold, generator, noise, evals):
+        ones = torch.ones_like(accept_counts)
+        group_total = torch.clamp_min(seg_sum(ones) * chunk, 1.0)    # (G,)
+        group_accept = seg_sum(accept_counts) / group_total          # (G,)
+        if adapt_enabled and not ensemble:
             state = adapt(state, group_accept, bool(allow_refresh))
         else:
-            # Adaptation off (many_steps): zero the move moments so fixed-L
-            # displacements never poison a later refresh.
+            # Adaptation off (many_steps), or an L-free sampler: zero the
+            # move moments so stale displacements never poison a later
+            # refresh.
             state = dataclasses.replace(
                 state, m_sum=torch.zeros_like(state.m_sum),
                 m_outer=torch.zeros_like(state.m_outer),
@@ -352,7 +726,10 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             "logprob_min": trace[:, 2],
             "accept_rate": accept_counts.mean() / chunk,    # () pooled
             "group_accept": group_accept,                   # (G,)
+            "posterior_evals": evals[0],
         }
+        if tempered:
+            state, out["swap_rate"] = replica_swap(state, force_cold, generator, noise)
         return state, out
 
     def _seed(state, generator):
@@ -362,7 +739,7 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
 
     def run(state: WalkerState, adapt_enabled=True, allow_refresh=True,
             force_cold=False, *, generator=None, noise=None):
-        """One chunk: ``chunk_size`` MH steps + one adaptation update."""
+        """One chunk: ``chunk_size`` steps + one adaptation update."""
         if chunk_kernel is not None and noise is None:
             dtype = state.position.dtype
             res = chunk_rwm(chunk_kernel, state.position, state.logprob,
@@ -383,15 +760,16 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             trace = torch.stack([res["trace_max"], res["trace_mean"],
                                  res["trace_min"]], dim=1).to(dtype)
             return _finish(state, res["accept_counts"].to(dtype), trace,
-                           adapt_enabled, allow_refresh)
+                           adapt_enabled, allow_refresh, force_cold, generator,
+                           noise, [0])
         accept_counts = torch.zeros_like(state.logprob)
-        traces = []
+        traces, evals = [], [0]
         for i in range(chunk):
-            state, accf, tr = one_step(state, i, force_cold, generator, noise)
+            state, accf, tr = step_fn(state, i, force_cold, generator, noise, evals)
             accept_counts = accept_counts + accf
             traces.append(tr)
-        return _finish(state, accept_counts, torch.stack(traces),
-                       adapt_enabled, allow_refresh)
+        return _finish(state, accept_counts, torch.stack(traces), adapt_enabled,
+                       allow_refresh, force_cold, generator, noise, evals)
 
     def run_with_history(state: WalkerState, adapt_enabled=True,
                          allow_refresh=True, force_cold=False, *,
@@ -399,16 +777,17 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         """``run`` that also returns the positions and logprobs after every
         ``thin``-th step: ``(chunk//thin, W, d)`` and ``(chunk//thin, W)``."""
         accept_counts = torch.zeros_like(state.logprob)
-        traces, positions, logprobs = [], [], []
+        traces, positions, logprobs, evals = [], [], [], [0]
         for i in range(chunk):
-            state, accf, tr = one_step(state, i, force_cold, generator, noise)
+            state, accf, tr = step_fn(state, i, force_cold, generator, noise, evals)
             accept_counts = accept_counts + accf
             traces.append(tr)
             if (i + 1) % thin == 0:
                 positions.append(state.position)
                 logprobs.append(state.logprob)
         state, out = _finish(state, accept_counts, torch.stack(traces),
-                             adapt_enabled, allow_refresh)
+                             adapt_enabled, allow_refresh, force_cold, generator,
+                             noise, evals)
         out["positions"] = torch.stack(positions)
         out["logprobs"] = torch.stack(logprobs)
         return state, out

@@ -119,12 +119,17 @@ def data_resident(post: FusedPosterior) -> bool:
             and sum(len(t.cols) for t in post.terms) * TILE <= RESIDENT_FLOATS)
 
 
-def chunk_coverage(terms, spec, config, n_walkers: int, dtype) -> str | None:
-    """Why the chunk kernel cannot run this fit, or None."""
+def chunk_coverage(terms, spec, config, n_walkers: int, dtype,
+                   n_groups: int = 1) -> str | None:
+    """Why the chunk kernel cannot run this fit, or None.  Like the JAX
+    package's ``pallas_chunk`` it runs ungrouped, untempered rwm."""
     if dtype != torch.float32:
         return f"the chunk kernel runs float32 fits (got {dtype})"
     if config.tempering_rungs > 1 or config.kernel != "rwm":
         return "the chunk kernel runs the untempered rwm sampler"
+    if n_groups > 1:
+        return (f"the chunk kernel runs one adaptation group (the fit has "
+                f"{n_groups}): one L for every walker")
     if pick_block(n_walkers, 1024) is None:
         return (f"the chunk kernel needs a walker count that is a multiple of "
                 f"128 (got W={n_walkers})")

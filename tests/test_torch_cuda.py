@@ -317,6 +317,34 @@ def test_auto_takes_the_kernel_on_cuda(cuda):
     assert tlk.fused_posterior.launches - before >= 400
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("layout", ["half", "grouped_half"])
+def test_fused_kernel_on_half_ensembles_matches_plain(cuda, layout, dtype, rtol):
+    """Kernel 1 on what the red-black samplers give it: the low half of
+    the ensemble (a contiguous slice) and the low halves of 8 groups,
+    flattened (a copy)."""
+    w = _walker(cuda, 4096, dtype, 0.05)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    pos = w.state.position
+    x = pos[:2048] if layout == "half" else pos.reshape(8, 512, 6)[:, :256].reshape(-1, 6)
+    assert x.shape == (2048, 6) and x.is_contiguous()
+    got = tlk.fused_posterior(x, post)
+    rel = tlk.posterior_rel_err(got, tlk.fused_posterior_plain(x, post), post)
+    assert bool(torch.isfinite(got).all()) and rel <= rtol, rel
+
+
+def test_new_paths_take_the_kernel_on_cuda(cuda):
+    """stretch, demc, slice and tempering launch kernel 1 once per
+    posterior evaluation of their runners (plus the fit's probe)."""
+    w = _walker(None, 1024, torch.float32, 1e-3)
+    before = tlk.fused_posterior.launches
+    for kind in ("stretch", "demc", "slice"):
+        w.sampling_steps(200, kernel=kind)
+    w.tempered_steps(400, rungs=4)
+    assert w.posterior_evals >= 2 * 600 + 400
+    assert tlk.fused_posterior.launches - before == w.posterior_evals + 1
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-12)])
 def test_chain_probe_matches_plain(cuda, dtype, rtol):
     x = torch.linspace(0.5, 2.0, 1000, dtype=dtype, device=cuda)  # a ragged block

@@ -198,16 +198,20 @@ def test_temperature_schedule_and_reductions_match_jax():
 
 def test_out_of_slice_configs_raise():
     for cfg in (tkernel.FitConfig(kernel="mala"),
-                tkernel.FitConfig(tempering_rungs=4),
                 tkernel.FitConfig(block_count=2, block_local=3)):
         with pytest.raises(NotImplementedError):
             tkernel.build_chunk_runner(lambda p: p.sum(1), D, cfg)
+    # Tempering is ported; as in the JAX package it needs a group per rung.
+    with pytest.raises(ValueError, match="one adaptation group per rung"):
+        tkernel.build_chunk_runner(lambda p: p.sum(1), D,
+                                   tkernel.FitConfig(tempering_rungs=4))
     with pytest.raises(ValueError, match="posterior_impl"):
         tkernel.FitConfig(posterior_impl="pallas")
     x = np.linspace(0.0, 1.0, 8)
+    # Adaptation groups are ported; per-walker aux data is not.
     with pytest.raises(NotImplementedError):
         tfit.Walker([], tfit.ParamSpec(("m",)), [1.0], device="cpu",
-                    group_ids=np.zeros(4))
+                    aux=np.zeros(4))
     assert tkernel.resolve_accept_band(tkernel.FitConfig()) == (0.2, 0.4)
     assert tkernel.resolve_accept_band(tkernel.FitConfig(kernel="mala")) == (0.45, 0.7)
     del x
