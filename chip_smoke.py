@@ -13,9 +13,14 @@ an H100) and the CUDA toolkit.  It
    exists, counts the FFMA/DFMA of the fma probes), measures the card's
    ceilings in both types and checks them against the published peaks,
    then runs ``lisp_mcmc_torch.roofline.main()`` at W = 131072;
-4. holds the fused posterior kernel against its plain PyTorch version at
-   the flagship's shape (W = 131072 walkers, d = 6, N = 334 points), in
-   float32 and float64, with a flat and a bounds prior, and times both;
+4. counts kernel 1's shared loads in SASS by width (cuobjdump; the
+   float32 point loop reads its points with 128-bit LDS), then holds the fused posterior kernel against its
+   plain PyTorch version at the flagship's shape (W = 131072 walkers,
+   d = 6, N = 334 points), in float32 and float64, with a flat and a
+   bounds prior, and times both; every kernel-1 timing here prints the
+   launch plan (``loglik_kernel.fused_plan``: threads, R, S, blocks,
+   waves, registers, spills; the plan's kernel may not spill), the
+   wrapper's ms and the kernel's own ms (``torch.profiler``);
 5. holds the whole-chunk rwm kernel against its plain version for one
    200-step chunk at W = 131072 from the same state, seed and dense L
    (``synthetic.dense_l``), and times both; reports its block size,
@@ -69,8 +74,9 @@ an H100) and the CUDA toolkit.  It
 18. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
-    width, with its launches on the ensemble journeys), the card line and,
-    last, ``{"ok": true, "device": {...}}``.
+    width, with its launches on the ensemble journeys, and its rows with
+    the kernel-only ms and the plan), the card line and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without the last line; it also refuses to run without a
@@ -220,6 +226,77 @@ def _max_rel(a, b):
     return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
 
+# Kernel 1's point loop by the shared loads it issues (cuobjdump), for the
+# flagship's twin class (lorder_mixed_bg, 0) at every R in both types.
+KERNEL1_SASS = {(t, r): f"_ZN3lmt22fused_posterior_kernelI{t}Li{r}ELi0EE"
+                for t in "fd" for r in (1, 2, 4)}
+
+
+def _sass_kernel1_loads():
+    """``{"f32_R1": {instruction: count}, ...}``: the shared (LDS*),
+    generic (LD.*) and async-copy (LDGSTS*) loads of kernel 1's
+    lorder_mixed_bg kernels; None without cuobjdump.  Every LDS is a load
+    of the point loop (the staging is cp.async, the walkers' rows and the
+    prior's tables are global loads)."""
+    import re
+    import shutil
+    from lisp_mcmc_torch.device import _target
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_target("fused_posterior"))], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        for (t, r), prefix in KERNEL1_SASS.items():
+            if name.startswith(prefix):
+                c = {}
+                for ins in re.findall(r"\b(LDS(?:\.[A-Z0-9.]+)?|LD(?:\.[A-Z0-9.]+)?|"
+                                      r"LDGSTS(?:\.[A-Z0-9.]+)?)\s", block):
+                    c[ins] = c.get(ins, 0) + 1
+                counts[f"{'f32' if t == 'f' else 'f64'}_R{r}"] = c
+    return counts
+
+
+def phase_kernel1_sass():
+    """Kernel 1's shared loads in SASS, by width: the float32 point loop
+    must read its packed records with 128-bit LDS."""
+    counts = _sass_kernel1_loads()
+    if counts is not None:
+        check(len(counts) == len(KERNEL1_SASS), f"kernel 1 SASS: found {sorted(counts)}")
+        for r in (1, 2, 4):
+            check(counts[f"f32_R{r}"].get("LDS.128", 0) > 0,
+                  f"kernel 1 f32 R={r}: no 128-bit shared load ({counts[f'f32_R{r}']})")
+    emit({"phase": "kernel1_sass", "loads": counts})
+
+
+def _kernel1(pos, post, ptxas, reps=50):
+    """Kernel 1 at ``pos``: the plan it launches with (the registers and
+    spills of that kernel; none may spill), the wrapper's ms (CUDA events
+    around back-to-back calls) and the kernel's own ms (torch.profiler)."""
+    from lisp_mcmc_torch.device import kernel_time_ms
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_kernel_entry, fused_plan,
+                                                   fused_posterior)
+
+    plan = fused_plan(post, pos.shape[0])
+    entry = fused_kernel_entry(ptxas["fused_posterior"], post.dtype, plan)
+    check(entry is not None, f"kernel 1: no ptxas entry for the plan {plan}")
+    check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+          f"kernel 1: the plan's kernel spills ({plan}, {entry})")
+
+    def fn():
+        return fused_posterior(pos, post)
+
+    kernel_ms = kernel_time_ms(fn, reps, "fused_posterior")
+    check(kernel_ms is not None, "kernel 1: torch.profiler recorded no fused_posterior kernel")
+    keep = ("threads", "R", "S", "blocks", "blocks_per_sm", "waves", "twin_class")
+    return {"plan": {**{k: plan[k] for k in keep}, "registers": entry["registers"],
+                     "spill_stores": entry["spill_stores"]},
+            "ms": cuda_time_ms(fn, reps), "kernel_ms": kernel_ms}
+
+
 def phase_roofline(counters):
     """The third kernel and the path that runs it.
 
@@ -340,8 +417,9 @@ def _flagship_walker(n_walkers, dtype, device, config=None, log_prior=None,
         config=config, dtype=dtype, device=device)
 
 
-def phase_fused(ceilings):
-    """Kernel 1 against its plain version at the flagship's shape."""
+def phase_fused(ceilings, ptxas):
+    """Kernel 1 against its plain version at the flagship's shape; each
+    launch's plan, wrapper ms and kernel-only ms."""
     import torch
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
@@ -373,13 +451,12 @@ def phase_fused(ceilings):
             check(rel <= rtol, f"fused posterior {dtype} {prior_name}: max "
                   f"relative error {rel} > {rtol}")
             n_out = int((prior(w.spec.unflatten(pos)) < 0).sum()) if prior else 0
-            ms = cuda_time_ms(lambda: fused_posterior(pos, post), 50)
             plain_ms = cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5)
             key = f"{str(dtype).split('.')[-1]}_{prior_name}"
             if key == "float32_flat":
                 main_post = post
             results[key] = {"max_rel_err": rel, "rtol": rtol,
-                            "max_abs_err": float(err.max()), "ms": ms,
+                            "max_abs_err": float(err.max()), **_kernel1(pos, post, ptxas),
                             "plain_ms": plain_ms, "walkers_far_out": n_out}
     emit({"phase": "fused_posterior", "W": W_FLAGSHIP, "d": 6, "N": N_POINTS,
           "results": results})
@@ -388,6 +465,7 @@ def phase_fused(ceilings):
             "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
             "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "kernel_ms": main["kernel_ms"], "plan": main["plan"],
             "plain_ms": main["plain_ms"],
             **_bounds(posterior_census(main_post), 1,
                       fused_bytes(main_post, W_FLAGSHIP), ceilings),
@@ -558,7 +636,7 @@ def _fused_check(post, pos, rtol, what):
     return rel, float((got - ref).abs().max())
 
 
-def phase_twins(ceilings):
+def phase_twins(ceilings, ptxas):
     """Every twin, with and without its optional parameters, every kind it
     takes, both types, at W = 131072 and N = 334; times each in float32.
 
@@ -602,7 +680,7 @@ def phase_twins(ceilings):
                     row[f"{kind}_{dname}_{'all' if optional else 'required'}"] = rel
                     if optional and kind == "normal" and dtype == torch.float32:
                         pos = w.state.position
-                        row["ms"] = cuda_time_ms(lambda: fused_posterior(pos, post), 20)
+                        row.update(_kernel1(pos, post, ptxas, 20))
                         row["plain_ms"] = cuda_time_ms(
                             lambda: fused_posterior_plain(pos, post), 3)
                         row.update(_bounds(posterior_census(post), 1,
@@ -648,7 +726,8 @@ def phase_global(ceilings, counters, ptxas):
         rel, abs_err = _fused_check(post, pos, RTOL[dname], f"global fused {dname}")
         out[f"fused_{dname}"] = {"max_rel_err": rel, "max_abs_err": abs_err}
         if dtype == torch.float32:
-            out["fused_ms"] = cuda_time_ms(lambda: fused_posterior(pos, post), 50)
+            out["fused"] = _kernel1(pos, post, ptxas)
+            out["fused_ms"] = out["fused"]["ms"]
             out["fused_plain_ms"] = cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5)
             out["fused_bounds"] = _bounds(posterior_census(post), 1,
                                           fused_bytes(post, W_FLAGSHIP), ceilings)
@@ -730,7 +809,7 @@ def phase_chunk_wide(ceilings, ptxas):
                     chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)})
 
 
-def phase_nv(ceilings, counters):
+def phase_nv(ceilings, counters, ptxas):
     """The NV pipeline: fit_nv_file on three synthetic spectra, one after
     another, the prior's bounds and declared constraints inside the fused
     kernel; times the fused kernel on the first spectrum's ensemble."""
@@ -769,7 +848,7 @@ def phase_nv(ceilings, counters):
         rel, _ = _fused_check(post, pos, RTOL["float32"], f"nv {i} constraints")
         spectra.append({**_nv_report(w, truth), "constraint_check_rel_err": rel})
         if i == 0:
-            kernel1 = {"ms": cuda_time_ms(lambda: fused_posterior(pos, post), 50),
+            kernel1 = {**_kernel1(pos, post, ptxas),
                        "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5),
                        **_bounds(posterior_census(post), 1, fused_bytes(post, W_FLAGSHIP),
                                  ceilings)}
@@ -958,11 +1037,11 @@ HALF_GROUPS = 8
 HALF_TURNS = 3
 
 
-def phase_half_width(ceilings):
+def phase_half_width(ceilings, ptxas):
     """Kernel 1 at W/2: the ungrouped low half (a contiguous slice) and the
     low halves of 8 groups flattened (a copy), each against its plain
     version; the full and half launches timed in turns, with both bounds
-    at each width."""
+    at each width, each width's plan and kernel-only ms."""
     import torch
     from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
                                                    fused_posterior_plain,
@@ -994,6 +1073,9 @@ def phase_half_width(ceilings):
             x = shapes[k]
             times[k].append(cuda_time_ms(lambda: fused_posterior(x, post), 200))
     for k in order:
+        one = _kernel1(shapes[k], post, ptxas, 200)
+        out[k].update(plan=one["plan"], kernel_ms=one["kernel_ms"],
+                      kernel_opmix_share=out[k]["opmix_bound_ms"] / one["kernel_ms"])
         out[k]["ms_turns"] = times[k]
         out[k]["ms"] = sorted(times[k])[len(times[k]) // 2]
         out[k]["opmix_share"] = out[k]["opmix_bound_ms"] / out[k]["ms"]
@@ -1266,15 +1348,16 @@ def main():
     phase_card()
     ptxas = phase_build()
     ceilings, probe_row = phase_roofline(counters)
-    kernels = [phase_fused(ceilings), phase_chunk(ceilings, ptxas)]
-    phase_twins(ceilings)
+    phase_kernel1_sass()
+    kernels = [phase_fused(ceilings, ptxas), phase_chunk(ceilings, ptxas)]
+    phase_twins(ceilings, ptxas)
     phase_global(ceilings, counters, ptxas)
     phase_chunk_wide(ceilings, ptxas)
     main_launches = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
-    phase_nv(ceilings, counters)
+    phase_nv(ceilings, counters, ptxas)
     phase_nv_chunk(ceilings, counters, ptxas)
-    half = phase_half_width(ceilings)
+    half = phase_half_width(ceilings, ptxas)
     phase_tempered(ceilings, counters)
     ensemble, slice_walker = phase_ensemble(counters)
     phase_slice_poll(slice_walker)
@@ -1290,7 +1373,8 @@ def main():
         "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
         "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
         "launches": sum(r["launches"]["fused_posterior"] - 1 for r in ensemble.values()),
-        "max_abs_err": h["max_abs_err"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "max_abs_err": h["max_abs_err"], "ms": h["ms"], "kernel_ms": h["kernel_ms"],
+        "plan": h["plan"], "plain_ms": h["plain_ms"],
         **{k: h[k] for k in ("bound_ms", "bound_by", "opmix_bound_ms")},
         "library_ms": None})
     summary = {"kernels": kernels}

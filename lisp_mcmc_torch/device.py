@@ -27,7 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["resolve_device", "load_library", "build_all", "build_log",
-           "ptxas_table", "BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES"]
+           "ptxas_table", "kernel_time_ms", "BUILD_DIR",
+           "CSRC_DIR", "KERNEL_SOURCES"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lisp_mcmc_torch"
@@ -163,3 +164,24 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.lmt_error_string.argtypes = [ctypes.c_int]
         msg = lib.lmt_error_string(code).decode()
         raise RuntimeError(f"{what}: kernel launch failed ({code}): {msg}")
+
+
+def kernel_time_ms(fn, reps: int, match: str) -> float | None:
+    """Mean device ms of one launch of the CUDA kernel whose name holds
+    ``match``, over ``reps`` warm calls of ``fn``, as ``torch.profiler``
+    (CUPTI) records them: the kernel's own time, without the wrapper's
+    host dispatch or any other kernel of the call.  None where the
+    profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+    us, count = sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
+    return us / 1e3 / count if count else None
+

@@ -1,12 +1,15 @@
 """Fused posterior kernel: positions (W, d) -> (W,) log-posterior.
 
 Port of ``lisp_mcmc_tpu/ops/loglik_pallas.py``.  The CUDA kernel
-(``csrc/fused_posterior.cu``) runs one thread per walker and loops over
-the posterior's terms as the Pallas kernel does: each term's model at
-every data point, its likelihood's reduction, then the bounds prior, all
-in registers, with each term's data columns staged in shared memory;
-nothing of size W x N reaches device memory.  The walker-independent
-constant is added here, outside the kernel, as in the JAX package.
+(``csrc/fused_posterior.cu``) loops over the posterior's terms as the
+Pallas kernel does: each term's model at every data point, its
+likelihood's reduction, then the bounds prior and the declared
+constraints, then the walker-independent constant, all in registers,
+with each term's points staged in shared memory as packed records
+(:func:`pack_records`); nothing of size W x N reaches device memory.
+Each thread evaluates R walkers and S threads share one walker's points;
+:func:`fused_plan` picks the block size, R and S for each W from the
+card's occupancy, once per W.
 
 Pallas traced any jnp model and prior into its kernel; CUDA cannot trace
 a Python callable, so:
@@ -43,7 +46,7 @@ from typing import Callable
 
 import torch
 
-from ..device import check_launch, load_library
+from ..device import build_log, check_launch, load_library, ptxas_table
 from ..likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
                            log_likelihood_poisson)
 from ..models.zoo import MAX_POLY, device_model, model_coverage
@@ -51,11 +54,12 @@ from ..priors import bound_penalty, constraint_total, log_prior_flat, prior_boun
 
 __all__ = ["FusedPosterior", "FusedTerm", "MAX_TERMS", "OP_CLASSES",
            "census_totals", "class_rates", "constraints_plain",
-           "fusable_terms", "fused_bytes", "fused_census", "fused_posterior",
-           "fused_posterior_plain", "kernel_coverage", "model_census",
-           "op_census", "opmix_bound_ms", "pick_block", "posterior_census",
+           "fusable_terms", "fused_bytes", "fused_census", "fused_kernel_entry",
+           "fused_plan", "fused_posterior", "fused_posterior_plain",
+           "kernel_coverage", "model_census", "op_census", "opmix_bound_ms",
+           "pack_records", "pick_block", "posterior_census",
            "posterior_raw_plain", "posterior_rel_err", "prepare_fused_terms",
-           "split_prior"]
+           "split_prior", "twin_class"]
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
@@ -197,6 +201,7 @@ class FusedTerm:
     names: tuple          # twin parameter names, in twin order
     pidx_host: tuple      # column of each, -1 for an absent optional one
     cols: tuple           # (x, y, inv_sigma[, c_pt, mask]) or (x, y, mask)
+    packed: torch.Tensor  # kernel 1's records of the points (pack_records)
 
     @property
     def n(self) -> int:
@@ -214,14 +219,17 @@ class FusedPosterior:
     constraints: tuple    # ((Constraint, column a, column b), ...), in turn
     rest: tuple           # ((prior remainder, dataset), ...) for torch
     keys: tuple           # the fit's parameter names (the remainders read them)
-    scalar_const: torch.Tensor  # () dtype, added outside the kernel
+    scalar_const: torch.Tensor  # () dtype: kernel 1 adds it last, kernel 2 leaves it out
     bcol: torch.Tensor    # (nb,) int32
     blo: torch.Tensor     # (nb,) dtype
     bhi: torch.Tensor     # (nb,) dtype
     cidx: torch.Tensor    # (nc, 3) int32: kind (CONSTRAINT_IDS), column a, column b
     cval: torch.Tensor    # (nc, 2) dtype: lo, hi (rounded to dtype, as torch compares)
     meta: ctypes.Array    # host rows of csrc/models.cuh's make_terms
-    col_ptrs: ctypes.Array
+    col_ptrs: ctypes.Array  # every term's columns (kernel 2)
+    rec_ptrs: ctypes.Array  # every term's packed records (kernel 1)
+    # kernel 1's launch plans, kept per (W, forced threads, R, S): fused_plan
+    plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def d(self) -> int:
@@ -236,11 +244,26 @@ class FusedPosterior:
         return self.terms[0].cols[0].device
 
 
+def pack_records(kind: str, cols) -> torch.Tensor:
+    """Kernel 1's records of one term's points: ``(N, 4)`` rows ``(x, y,
+    inv_sigma, 0)`` for the normal kind, ``(x, y, mask, 0)`` for poisson;
+    the cutoff kind two rows a point, ``(x, y, inv_sigma, c_pt)`` then
+    ``(mask, 0, 0, 0)``: ``(2N, 4)``.  One record is one 16-byte shared
+    load in float32."""
+    zero = torch.zeros_like(cols[0])
+    if kind == "normal_cutoff":
+        x, y, inv_sigma, c_pt, mask = cols
+        return torch.stack([torch.stack([x, y, inv_sigma, c_pt], dim=-1),
+                            torch.stack([mask, zero, zero, zero], dim=-1)],
+                           dim=1).reshape(-1, 4).contiguous()
+    return torch.stack([*cols, zero], dim=-1).contiguous()
+
+
 def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
     """Host-side precomputation for the kernels, or None outside coverage.
 
     The scalar normalization constant of every term is kept apart (it
-    cancels in MH ratios and is added outside the kernel).
+    cancels in MH ratios); kernel 1 adds it last, kernel 2 leaves it out.
     """
     if kernel_coverage(terms, spec) is not None:
         return None
@@ -265,7 +288,8 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
             cols = (col(ds.x), col(ds.y), col(ds.mask))
             const = const - torch.sum(ds.log_fact_y.to(dtype))
         fused.append(FusedTerm(kind=kind, base=base, model_id=model_id,
-                               names=names, pidx_host=pidx, cols=cols))
+                               names=names, pidx_host=pidx, cols=cols,
+                               packed=pack_records(kind, cols)))
         entries, remainder, declared = split_prior(t.prior, spec.keys)
         bounds.extend(entries)
         constraints.extend(declared)
@@ -290,7 +314,8 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
         cval=torch.tensor([[c.lo, c.hi] for c, _, _ in constraints],
                           dtype=dtype, device=dev).reshape(-1, 2),
         meta=(ctypes.c_int * len(meta))(*meta),
-        col_ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs))
+        col_ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs),
+        rec_ptrs=(ctypes.c_void_p * len(fused))(*(ft.packed.data_ptr() for ft in fused)))
 
 
 def posterior_raw_plain(positions, post: FusedPosterior):
@@ -349,12 +374,106 @@ def fused_posterior_plain(positions, post: FusedPosterior):
     return posterior_raw_plain(positions, post) + post.scalar_const + _rest(positions, post)
 
 
-_FUSED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+_PLAN_KEYS = ("threads", "R", "S", "blocks", "blocks_per_sm", "sms", "smem_bytes",
+              "cap", "nbuf", "twin_class")
+_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_PLAN_R = (1, 2, 4)
+_FUSED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3)
 
 
-def _launch_fused(positions, post: FusedPosterior):
+def _dtype_id(dtype) -> int:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fused_posterior: no kernel for {dtype}")
+    return 0 if dtype == torch.float32 else 1
+
+
+def _entry(lib, name, argtypes):
+    """``lib.name`` with its C signature (set once: ctypes keeps the
+    function object on the library)."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def twin_class(post: FusedPosterior) -> int:
+    """The kernel-1 twin class of a launch (``csrc/fused_posterior.cu``:
+    ``twin_class``): the terms' common twin id, the polynomial as 13 (up
+    to 4 coefficients), 14 (up to 8) or 3 (up to 16), or 15 where the
+    terms mix twins."""
+    ids = {t.model_id for t in post.terms}
+    if len(ids) > 1:
+        return 15
+    model = ids.pop()
+    if model == 3:
+        n = max(len(t.pidx_host) for t in post.terms)
+        return 13 if n <= 4 else 14 if n <= 8 else 3
+    return model
+
+
+def _spill_free_r(post: FusedPosterior) -> int:
+    """Bit mask of the R (bit 0: 1, bit 1: 2, bit 2: 4) whose kernel for
+    this posterior's type and twin class has no register spills in the
+    build's ptxas log; every R where none is free."""
+    table = ptxas_table(build_log("fused_posterior"))
+    tc = twin_class(post)
+    mask = 0
+    for bit, r in enumerate(_PLAN_R):
+        e = fused_kernel_entry(table, post.dtype, {"R": r, "twin_class": tc})
+        if e is not None and e["spill_stores"] == 0 and e["spill_loads"] == 0:
+            mask |= 1 << bit
+    return mask or 7
+
+
+def fused_plan(post: FusedPosterior, W: int, force=None) -> dict:
+    """How kernel 1 launches W walkers of ``post`` on the current card
+    (``lmt_fused_plan``): ``threads`` a block, ``R`` walkers a thread,
+    ``S`` threads a walker, ``blocks``, ``blocks_per_sm`` (the residency
+    the card reports for that kernel's registers and shared memory),
+    ``sms``, ``smem_bytes`` a block (``cap`` records a buffer, ``nbuf``
+    buffers), ``twin_class`` (the kernel's twin, 15: any) and ``waves``,
+    the blocks over the blocks the SMs hold at once.
+
+    The plan weighs, for each block size in (64, 128, 256), R and S in (1,
+    2, 4), the walkers its busiest SM evaluates against the warps and
+    warps x R walker chains it keeps resident there, the shared loads
+    (1/R a walker-point) and the S-fold twin setups, and of the plans
+    within 3 % of the cheapest takes the one with the most resident warps.
+    It takes only an R whose kernel has no register spills (the build's
+    ptxas log), where the twin class has one.  ``force=(threads, R, S)``
+    (any of them None: chosen) takes those values instead, for tests; a
+    value no plan has raises.  Worked out once per W (and force) and kept
+    on ``post``.
+    """
+    key = (int(W), *(force or (None, None, None)))
+    if key not in post.plans:
+        lib = load_library("fused_posterior")
+        fn = _entry(lib, "lmt_fused_plan", _PLAN_ARGTYPES)
+        out = (ctypes.c_int * len(_PLAN_KEYS))()
+        forced = [int(v or 0) for v in (force or (0, 0, 0))]
+        code = fn(_dtype_id(post.dtype), int(W), len(post.terms),
+                  ctypes.addressof(post.meta), *forced, _spill_free_r(post),
+                  ctypes.addressof(out))
+        check_launch(lib, code, f"fused_plan (W={W}, force={force})")
+        plan = dict(zip(_PLAN_KEYS, out))
+        plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+        post.plans[key] = (plan, out)
+    return dict(post.plans[key][0])
+
+
+def fused_kernel_entry(ptxas: dict, dtype, plan: dict) -> dict | None:
+    """The ptxas table entry (``device.ptxas_table`` of the
+    ``fused_posterior`` build: registers, stack, spills) of the kernel a
+    plan launches, found by its symbol ``lmt::fused_posterior_kernel<T,
+    R, twin_class>``; None where the table lacks it."""
+    prefix = (f"_ZN3lmt22fused_posterior_kernelI{'f' if dtype == torch.float32 else 'd'}"
+              f"Li{plan['R']}ELi{plan['twin_class']}EE")
+    return next((v for k, v in ptxas.items() if k.startswith(prefix)), None)
+
+
+def _launch_fused(positions, post: FusedPosterior, force=None):
     if positions.dtype != post.dtype or positions.device != post.device:
         raise ValueError(
             f"fused_posterior: positions are {positions.dtype} on "
@@ -364,32 +483,36 @@ def _launch_fused(positions, post: FusedPosterior):
                          f"got {tuple(positions.shape)}")
     if not positions.is_contiguous():
         raise ValueError("fused_posterior: positions must be contiguous")
-    if post.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"fused_posterior: no kernel for {post.dtype}")
-    lib = load_library("fused_posterior")
-    fn = lib.lmt_fused_posterior
-    fn.argtypes, fn.restype = _FUSED_ARGTYPES, ctypes.c_int
+    dtype_id = _dtype_id(post.dtype)
     W = positions.shape[0]
+    key = (W, *(force or (None, None, None)))
+    if key not in post.plans:
+        fused_plan(post, W, force)
+    plan = post.plans[key][1]
+    lib = load_library("fused_posterior")
+    fn = _entry(lib, "lmt_fused_posterior", _FUSED_ARGTYPES)
     out = torch.empty(W, dtype=post.dtype, device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
-    code = fn(0 if post.dtype == torch.float32 else 1, positions.data_ptr(), W,
-              post.d, len(post.terms), ctypes.addressof(post.meta),
-              ctypes.addressof(post.col_ptrs), post.bcol.data_ptr(),
+    code = fn(dtype_id, ctypes.addressof(plan), positions.data_ptr(), W, post.d,
+              len(post.terms), ctypes.addressof(post.meta),
+              ctypes.addressof(post.rec_ptrs), post.bcol.data_ptr(),
               post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
               post.cidx.data_ptr(), post.cval.data_ptr(), len(post.constraints),
-              out.data_ptr(), stream)
+              post.scalar_const.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, code, "fused_posterior")
     fused_posterior.launches += 1
     return out
 
 
-def fused_posterior(positions, post: FusedPosterior):
-    """Log-posterior of each walker: the CUDA kernel on a CUDA tensor (plus
-    the constant and the priors' remainders in torch), the plain version
-    on a CPU tensor."""
+def fused_posterior(positions, post: FusedPosterior, force=None):
+    """Log-posterior of each walker: on a CUDA tensor one launch of the
+    kernel (constant included; a prior's undeclared remainder, if any,
+    added in torch), on a CPU tensor the plain version.  ``force=(threads,
+    R, S)`` fixes the launch plan (:func:`fused_plan`); the CPU ignores
+    it."""
     if positions.device.type == "cpu":
         return fused_posterior_plain(positions, post)
-    out = _launch_fused(positions, post) + post.scalar_const
+    out = _launch_fused(positions, post, force)
     return out + _rest(positions, post) if post.rest else out
 
 
@@ -399,8 +522,8 @@ fused_posterior.launches = 0  # kernel launches, for proof that a path used it
 def posterior_rel_err(got, ref, post: FusedPosterior) -> float:
     """Largest ``|got - ref|`` between two evaluations of ``post``'s
     posterior, relative to ``max(|ref|, |ref - C|, 1)``, where ``C`` is
-    the whole log-normalisation: the scalar constant (added outside the
-    kernel) plus the cutoff kind's per-point constants (summed inside it).
+    the whole log-normalisation: the scalar constant (added last) plus the
+    cutoff kind's per-point constants (summed with the points).
 
     The log-normalisation can cancel the data's misfit to a posterior near
     0, where ``|ref|`` alone measures nothing but the cancellation;

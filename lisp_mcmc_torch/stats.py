@@ -37,11 +37,40 @@ def _tensor(x):
     return x if x.is_floating_point() else x.to(torch.float64)
 
 
+def _quantile(x, q, axis):
+    """Quantiles ``q`` (a scalar or 1-D, in [0, 1]) of ``x`` along
+    ``axis`` (None: flattened), interpolated linearly between the sorted
+    neighbours as ``jnp.percentile`` does: at ``i = q (n - 1)``,
+    ``s[lo] + (i - lo) (s[hi] - s[lo])``.  A NaN anywhere in a slice
+    gives NaN.  Sorts, so it has no size limit (``torch.quantile``
+    refuses more than 2^24 entries).  The q axes come first in the
+    result, as in ``torch.quantile``."""
+    x = _tensor(x)
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    s = torch.movedim(x, axis, -1)
+    n = s.shape[-1]
+    if n == 0:
+        raise ValueError("quantile of an empty axis")
+    s = torch.sort(s, dim=-1).values
+    q = torch.as_tensor(q, dtype=s.dtype, device=s.device)
+    i = q * (n - 1)
+    lo = torch.floor(i).to(torch.int64).clamp(0, n - 1)
+    hi = torch.ceil(i).to(torch.int64).clamp(0, n - 1)
+    frac = i - lo.to(s.dtype)
+    s_lo = torch.index_select(s, -1, lo.reshape(-1))
+    s_hi = torch.index_select(s, -1, hi.reshape(-1))
+    v = s_lo + frac.reshape(-1) * (s_hi - s_lo)
+    v = torch.where(torch.isnan(s).any(dim=-1, keepdim=True),
+                    torch.full_like(v, float("nan")), v)
+    return torch.movedim(v, -1, 0).reshape((*q.shape, *s.shape[:-1]))
+
+
 def nth_percentile(x, n, axis=-1):
     """``nth-percentile`` (mcmc-fitting.lisp:1495): linear interpolation."""
     x = _tensor(x)
-    q = torch.as_tensor(n, dtype=x.dtype, device=x.device) / 100.0
-    return torch.quantile(x, q, dim=axis)
+    return _quantile(x, torch.as_tensor(n, dtype=x.dtype, device=x.device) / 100.0,
+                     axis)
 
 
 def hdi(samples, level: float = 0.95):
@@ -73,7 +102,7 @@ def iqr(x, axis=-1):
 
 def median(x, axis=-1):
     """The median, the mean of the two middle values for an even count."""
-    return torch.quantile(_tensor(x), 0.5, dim=axis)
+    return _quantile(x, 0.5, axis)
 
 
 def mean(x, axis=-1):

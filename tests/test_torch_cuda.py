@@ -374,3 +374,145 @@ def test_chain_probe_reads_the_sm_clock(cuda):
     mhz = tmb.sm_clock_mhz(x, "fma", 64)
     assert tmb.chain_probe.launches == before + 1
     assert 300 < mhz < 2500
+
+
+# ---- kernel 1's launch plans: every (R, S) at two block sizes
+
+PLAN_THREADS = (128, 256)
+PLAN_RS = ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (2, 4), (4, 1), (4, 2), (4, 4))
+
+
+def _plan_fit(name, device, dtype, n_walkers):
+    """The fits the plans are held on: the flagship (one term), the global
+    fit of three datasets under the cutoff likelihood (one twin, three
+    terms), a Poisson line and the NV fit (bounds and declared
+    constraints in the kernel); some walkers far out."""
+    if name == "one_term":
+        return _walker(device, n_walkers, dtype, 0.05,
+                       log_prior=tfit.make_bounds_prior(BOUNDS))
+    if name == "three_term_cutoff":
+        g = synthetic.global_fit(3)
+        return tfit.walker_create(function=g["functions"], data=g["data"],
+                                  params=g["truth"], data_error=1e-7,
+                                  log_likelihood=tfit.log_likelihood_normal_cutoff,
+                                  n_walkers=n_walkers, walker_jitter=0.02, dtype=dtype,
+                                  device=device)
+    if name == "poisson":
+        x = np.linspace(0.0, 4.0, 90)
+        y = np.random.default_rng(4).poisson(lam=5.0 + 2.0 * x).astype(float)
+        return tfit.walker_create(function=models.line, data=(x, y),
+                                  params={"m": 2.0, "b": 5.0},
+                                  log_likelihood=tfit.log_likelihood_poisson,
+                                  n_walkers=n_walkers, walker_jitter=0.05, dtype=dtype,
+                                  device=device)
+    return _nv_walker(device, n_walkers, dtype, 0.01)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("W", [1, 255, 4097, 65536])
+@pytest.mark.parametrize("fit", ["one_term", "three_term_cutoff", "poisson", "nv"])
+def test_fused_kernel_every_plan_matches_plain(cuda, fit, W, dtype, rtol):
+    """Kernel 1 at every forced (threads, R, S) against its plain version:
+    a ragged last block (W = 255, 4097), a single walker, the red-black
+    half width."""
+    w = _plan_fit(fit, cuda, dtype, W)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    assert post is not None and post.rest == ()
+    pos = w.state.position
+    want = tlk.fused_posterior_plain(pos, post)
+    for threads in PLAN_THREADS:
+        for R, S in PLAN_RS:
+            plan = tlk.fused_plan(post, W, force=(threads, R, S))
+            assert (plan["threads"], plan["R"], plan["S"]) == (threads, R, S)
+            assert plan["blocks"] * threads // S * R >= W
+            got = tlk.fused_posterior(pos, post, force=(threads, R, S))
+            assert got.shape == (W,) and bool(torch.isfinite(got).all())
+            rel = tlk.posterior_rel_err(got, want, post)
+            assert rel <= rtol, f"{fit} W={W} {dtype} plan {plan}: {rel} > {rtol}"
+
+
+def test_fused_kernel_mixed_twins_run_one_at_a_time(cuda):
+    """A launch whose terms mix twins runs the kernel that picks each
+    term's twin at run time: R = 1 at every S; R = 2 has no plan."""
+    rng = np.random.default_rng(2)
+    x = np.linspace(-5.0, 5.0, 700)  # the gaussian term staged in two tiles in float64
+    w = tfit.walker_create(
+        function=[models.gaussian_peak, models.line],
+        data=[(x, np.exp(-0.5 * x ** 2) + 0.01 * rng.standard_normal(700)),
+              (x, 3.0 * x - 0.5 + 0.05 * rng.standard_normal(700))],
+        params={"scale": 1.0, "x0": 0.0, "sigma": 1.0, "m": 3.0, "b": -0.5},
+        data_error=[0.01, 0.05], walker_jitter=0.1, n_walkers=4097,
+        dtype=torch.float64, device=cuda)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float64)
+    want = tlk.fused_posterior_plain(w.state.position, post)
+    assert tlk.fused_plan(post, 4097)["twin_class"] == 15
+    for S in (1, 2, 4):
+        got = tlk.fused_posterior(w.state.position, post, force=(128, 1, S))
+        assert tlk.posterior_rel_err(got, want, post) <= 1e-9
+    with pytest.raises(RuntimeError, match="fused_plan"):
+        tlk.fused_plan(post, 4097, force=(128, 2, 1))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("n_coef", [1, 4, 5, 8, 9, 16])
+def test_polynomial_classes_match_plain(cuda, n_coef, dtype, rtol):
+    """The polynomial held in 4, 8 or 16 coefficient registers, at each
+    class's edges, every R."""
+    fns, data, params = _poly_fit(n_coef)
+    w = tfit.walker_create(function=fns, data=data, params=params, data_error=0.05,
+                           n_walkers=4097, walker_jitter=1e-3, dtype=dtype, device=cuda)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    want_class = 13 if n_coef <= 4 else 14 if n_coef <= 8 else 3
+    want = tlk.fused_posterior_plain(w.state.position, post)
+    for R in (1, 2, 4):
+        plan = tlk.fused_plan(post, 4097, force=(None, R, None))
+        assert plan["twin_class"] == want_class
+        got = tlk.fused_posterior(w.state.position, post, force=(None, R, None))
+        assert tlk.posterior_rel_err(got, want, post) <= rtol, (n_coef, R)
+
+
+@pytest.mark.parametrize("force", [None, (256, 4, 4), (128, 2, 2)])
+def test_fused_kernel_is_bit_identical_run_to_run(cuda, force):
+    w = _walker(cuda, 65536, torch.float32, 0.05)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    a = tlk.fused_posterior(w.state.position, post, force=force)
+    b = tlk.fused_posterior(w.state.position, post, force=force)
+    assert torch.equal(a, b)
+
+
+def test_fused_posterior_is_one_launch_with_the_constant(cuda):
+    """The scalar constant is added in the kernel: one CUDA kernel a call
+    (counted by torch.profiler), and the result is the plain version's,
+    constant included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _walker(cuda, 4096, torch.float32, 0.05, log_prior=tfit.make_bounds_prior(BOUNDS))
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    assert post.rest == () and float(post.scalar_const) != 0.0
+    pos = w.state.position
+    tlk.fused_posterior(pos, post)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tlk.fused_posterior(pos, post)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "fused_posterior" in kernels[0].name, \
+        [e.name for e in kernels]
+    want = tlk.fused_posterior_plain(pos, post)
+    assert tlk.posterior_rel_err(got, want, post) <= 1e-4
+
+
+@pytest.mark.parametrize("W", [65536, 131072])
+def test_fused_plan_fills_a_wave(cuda, W):
+    """The flagship's plan at the red-black half width and the full one:
+    a wave of blocks on every SM at 32 resident warps or more.  A wave
+    here is within one block an SM of full (65536 walkers in blocks of
+    128 give 512 blocks for the 528 the H100's SMs hold at 4 each)."""
+    w = _walker(cuda, 1024, torch.float32, 0.05)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    plan = tlk.fused_plan(post, W)
+    per_sm = -(-plan["blocks"] // plan["sms"])
+    assert plan["blocks"] >= plan["sms"] * (plan["blocks_per_sm"] - 1), plan
+    assert min(per_sm, plan["blocks_per_sm"]) * plan["threads"] // 32 >= 32, plan
+    assert plan["blocks"] * plan["threads"] // plan["S"] * plan["R"] >= W
+    assert tlk.fused_plan(post, W) == plan and (W, None, None, None) in post.plans

@@ -112,6 +112,60 @@ def test_plain_fused_matches_jax_interpret(case):
         assert (got < -1e3).any(), "some walkers must sit outside the bounds"
 
 
+@pytest.mark.parametrize("case", ["normal_flat", "cutoff_bounds", "poisson_flat"])
+def test_packed_records_hold_the_columns_in_order(case):
+    """Kernel 1's records (``prepare_fused_terms`` packs each term once):
+    ``(x, y, inv_sigma, 0)`` a point for the normal kind, ``(x, y, mask,
+    0)`` for poisson, and for the cutoff kind ``(x, y, inv_sigma, c_pt)``
+    then ``(mask, 0, 0, 0)``; the values are the JAX dataset's columns."""
+    jw, terms, spec = _pair(case)
+    ds = jw.terms[0].dataset
+    for dtype in (torch.float64, torch.float32):
+        post = tlk.prepare_fused_terms(terms, spec, dtype)
+        rec = post.terms[0].packed
+        assert rec.dtype == dtype and rec.is_contiguous()
+        assert rec.data_ptr() == post.rec_ptrs[0]
+        n = np.asarray(ds.x).shape[0]  # the padded length, masked points included
+
+        def col(name):
+            return torch.as_tensor(np.asarray(getattr(ds, name))).to(dtype)
+
+        zero = torch.zeros(n, dtype=dtype)
+        if case.startswith("cutoff"):
+            assert rec.shape == (2 * n, 4)
+            want = [col("x"), col("y"), col("inv_sigma"), col("log_norm_const_point"),
+                    col("mask"), zero, zero, zero]
+            got = [rec[0::2, k] for k in range(4)] + [rec[1::2, k] for k in range(4)]
+        else:
+            assert rec.shape == (n, 4)
+            third = "mask" if case.startswith("poisson") else "inv_sigma"
+            want = [col("x"), col("y"), col(third), zero]
+            got = [rec[:, k] for k in range(4)]
+        for k, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=f"{case} value {k}")
+
+
+def test_twin_class_picks_the_kernel_of_a_launch():
+    """Kernel 1's twin class (``loglik_kernel.twin_class``, the host
+    mirror of ``csrc/fused_posterior.cu``'s): the terms' common twin, the
+    polynomial by its largest coefficient count (13: up to 4, 14: up to
+    8, 3: up to 16), 15 where the terms mix twins."""
+    x = np.linspace(-1.0, 1.0, 16)
+
+    def post(functions, params):
+        w = tfit.walker_create(function=functions, data=[(x, x)] * len(functions),
+                               params=params, n_walkers=128, device="cpu")
+        return tlk.prepare_fused_terms(w.terms, w.spec, torch.float64)
+
+    assert tlk.twin_class(post([t_line, t_line], {"m": 1.0, "b": 0.5})) == 1
+    for n, want in ((1, 13), (4, 13), (5, 14), (8, 14), (9, 3), (16, 3)):
+        coef = {f"c{j}": 1.0 for j in range(n)}
+        assert tlk.twin_class(post([tfit.models.polynomial], coef)) == want, n
+    assert tlk.twin_class(post([t_line, tfit.models.gaussian_peak],
+                               {"m": 1.0, "b": 0.5, "scale": 1.0, "x0": 0.0,
+                                "sigma": 1.0})) == 15
+
+
 def test_pick_block():
     assert tlk.pick_block(65536) == 2048
     assert tlk.pick_block(256) == 256
