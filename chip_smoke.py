@@ -71,10 +71,31 @@ an H100) and the CUDA toolkit.  It
     the same chains checked on injected draws;
 17. profiles two chunks of the default path and two 20-step slice chunks
     (wall clock, device time by kernel, the device's busy share);
-18. prints the ``kernels`` summary line (each kernel's time, launches on
+18. ``gradient``: an rwm warm-in from the ensemble journeys' start, then
+    ``sampling_steps`` with mala (2000 steps), hmc (400) and chees (400)
+    on the same walkers, their gradients by autograd through the plain
+    posterior (checked: no kernel-1 launch inside one) and the rescue's
+    two half-rounds a chunk on kernel 1 at W/2 (checked: the launches);
+    gates best lp, x0, the sampled x0 median, acceptance in the sampler's
+    band widened by 0.1, the x0 spread against the ensemble journeys',
+    a finite state, kernel 1 against autograd on the rescued walkers;
+    reports ms a step and an ``eval_vg`` (wrapper and device), the chees
+    step's host sync (profiled 20-step chees and hmc chunks), peak memory,
+    ``chees_trajectory`` and ESS/s by bench.py's recipe;
+19. ``chees_d24``: bench.py's correlated Gaussian (d = 24, W = 2048), rwm
+    warm-in then chees; gates every marginal variance within 25 %;
+    reports ESS/s;
+20. ``blocked``: block-diagonal proposals on a Gaussian of 2 hyper + 8
+    local blocks of 3 (W = 4096; rwm, then mala), gates L's cross blocks
+    exactly 0 after refreshes and the variances within 25 %; then blocked
+    rwm on the chunk kernel (the global pair ordered hyper-first, W =
+    131072), the kernel against its plain version with the fit's
+    block-diagonal L, and the journeys' gates;
+21. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
-    width, with its launches on the ensemble journeys, and its rows with
+    width, with its launches on the ensemble journeys, and at the rescue's
+    W/2, with its launches on the gradient journeys, and its rows with
     the kernel-only ms and the plan), the card line and, last,
     ``{"ok": true, "device": {...}}``.
 
@@ -511,7 +532,7 @@ TRACE_RTOL = 1e-4
 TRACE_LAST_RTOL = 1e-5
 
 
-def _chunk_check(ck, state, L, what):
+def _chunk_check(ck, state, L, what, dense_l=True):
     """One 200-step chunk of the kernel against its plain version from the
     same state, L (dense: ``synthetic.dense_l``) and seed at anneal step
     1000; returns the measurements (``chunk_kernel.chunk_diff``).
@@ -526,7 +547,9 @@ def _chunk_check(ck, state, L, what):
     other steps everywhere.  Every walker's best point must give its best
     logprob, which is no lower than its logprob.  The moments are held to
     :data:`MOMENT_RTOL`, the trace to :data:`TRACE_RTOL` and
-    :data:`TRACE_LAST_RTOL`.
+    :data:`TRACE_LAST_RTOL`.  ``dense_l`` False (a block-diagonal L) drops
+    the check that the off-diagonal moments are large enough to see: the
+    cross-block ones are near 0 by design.
     """
     import torch
     from lisp_mcmc_torch.ops.chunk_kernel import chunk_diff, chunk_rwm, chunk_rwm_plain
@@ -555,7 +578,7 @@ def _chunk_check(ck, state, L, what):
           f"{what}: {diff['best_agreement']} of the agreeing walkers' best points "
           f"match (rtol 1e-4); need >= {BEST_AGREEMENT}")
     signal = diff["moments_offdiag_median"]
-    check(signal >= 10 * MOMENT_RTOL, f"{what}: off-diagonal moments of median {signal} "
+    check(not dense_l or signal >= 10 * MOMENT_RTOL, f"{what}: off-diagonal moments of median {signal} "
           f"of sqrt(m_ii m_jj), too small for the {MOMENT_RTOL} check to see them")
     for k in ("msum_err", "mouter_err"):
         check(diff[k] <= MOMENT_RTOL, f"{what}: moments {k} {diff[k]} > {MOMENT_RTOL}")
@@ -1092,10 +1115,11 @@ N_TEMPERED = 10000
 TEMPERED_RUNGS, TEMPERED_T_MAX = 8, 50.0
 
 
-def phase_tempered(ceilings, counters):
+def phase_tempered(ceilings, counters, ptxas):
     """``tempered_steps`` at W = 131072: kernel 1 once a step on the whole
     ensemble (8 rungs as adaptation groups), replica swaps at every chunk
-    end; gates best lp and x0; times kernel 1 on the tempered ensemble."""
+    end; gates best lp and x0; times kernel 1 on the tempered ensemble
+    (the wrapper, and the kernel alone with its plan)."""
     import torch
     from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior,
                                                    fused_posterior_plain,
@@ -1133,7 +1157,9 @@ def phase_tempered(ceilings, counters):
     post = prepare_fused_terms(w.terms, w.spec, torch.float32)
     pos = w.state.position
     rel, abs_err = _fused_check(post, pos, RTOL["float32"], "tempered ensemble")
+    one = _kernel1(pos, post, ptxas, 100)
     kernel1 = {"max_rel_err": rel, "max_abs_err": abs_err,
+               "kernel_ms": one["kernel_ms"], "plan": one["plan"],
                "ms": cuda_time_ms(lambda: fused_posterior(pos, post), 100),
                "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5),
                **_bounds(posterior_census(post), 1, fused_bytes(post, W_FLAGSHIP), ceilings)}
@@ -1219,6 +1245,409 @@ def phase_ensemble(counters):
     return results, walkers["slice"]
 
 
+# The gradient journeys: an rwm warm-in from the ensemble journeys' start
+# (its L adapted and refreshed, then its cold finish), then sampling_steps
+# with mala, hmc and chees in turn on the same walkers, history kept.
+N_GRADIENT_WARM = 4000
+N_GRADIENT = {"mala": 2000, "hmc": 400, "chees": 400}
+# Gates, fixed before the first chip run: acceptance inside the sampler's
+# band (kernel.resolve_accept_band) widened by this on both sides; each
+# x0 std within ENSEMBLE_STD_FACTOR of the ensemble journeys' geometric
+# mean; kernel 1 against autograd on the rescued walkers within the fused
+# kernel's float32 tolerance.
+GRADIENT_BAND_SLACK = 0.1
+# bench.py's ESS recipe (bench.py:288-313): history chunks timed at T = 1.
+GRADIENT_ESS_CHUNKS = {"mala": 4, "chees": 2}
+# Steps of the profiled chunks (the chees host sync): five keep the
+# profiler's trace small (an hmc step is ~1100 kernels).
+GRADIENT_PROFILE_STEPS = 5
+
+
+def _device_ms(fn, reps):
+    """Device time of one ``fn()`` by torch.profiler (every kernel it
+    launches, summed) and its kernels a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    check(rows, "torch.profiler recorded no device time")
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+            sum(e.count for e in rows) / reps)
+
+
+def _kernel_ess(w, kind, n_chunks):
+    """bench.py's recipe: one warm history chunk at T = 1, then ``n_chunks``
+    timed ones; min-ESS over their positions (on the device) per second."""
+    import dataclasses
+    import torch
+    import lisp_mcmc_torch as mfit
+
+    prev = w.config
+    w.config = dataclasses.replace(w.config, kernel=kind)
+    try:
+        runner = w._runner(with_history=True)
+        w.state, _ = runner(w.state, True, True, True, generator=w.generator)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist, acc = [], []
+        for _ in range(n_chunks):
+            w.state, h = runner(w.state, True, True, True, generator=w.generator)
+            hist.append(h["positions"])
+            acc.append(h["accept_rate"])
+        pos = torch.cat(hist)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        w.config = prev
+    ess = mfit.ess_from_history(pos, w.spec.keys)
+    return {"steps": n_chunks * w.config.chunk_size, "seconds": secs,
+            "acceptance": float(torch.stack(acc).mean()),
+            "min_ess": min(ess.values()), "ess_per_sec": min(ess.values()) / secs}, pos
+
+
+def phase_gradient(ceilings, counters, ptxas, ensemble):
+    """mala, hmc and chees via ``sampling_steps`` at W = 131072 after an
+    rwm warm-in: values and gradients by autograd through the plain
+    posterior (checked: no kernel-1 launch inside one), the rescue's two
+    half-rounds a chunk on kernel 1 at W/2 (checked: the launches).  Gates
+    best lp, x0, the sampled x0 median and spread, the acceptance and a
+    finite state; reports ms a step and an ``eval_vg``, the chees host
+    sync, peak memory, ``chees_trajectory``, kernel 1 against autograd on
+    the rescued walkers and ESS/s.  Returns kernel 1's rescue row."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from lisp_mcmc_torch.kernel import build_chunk_runner, make_eval_vg, resolve_accept_band
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    fused = counters[0]
+    lp_gen = _lp_generating()
+    x0 = FLAGSHIP["x0"]
+    ens_std = float(np.exp(np.mean([np.log(r["x0_std"]) for r in ensemble.values()])))
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP,
+                         jitter=ENSEMBLE_JITTER)
+    t0 = time.perf_counter()
+    w.adaptive_steps(N_GRADIENT_WARM, temperature=1.0, auto=None, collect_history=False)
+    torch.cuda.synchronize()
+    warm_secs = time.perf_counter() - t0
+    real, inside, calls = w._log_post, [0], [0]
+
+    def watched(x):
+        before = fused.launches
+        out = real(x)
+        inside[0] += fused.launches - before
+        calls[0] += 1
+        return out
+
+    w._log_post = watched
+    eval_vg = make_eval_vg(real)
+    results, rescue_launches = {}, 0
+    for kind, n in N_GRADIENT.items():
+        for c in counters:
+            c.launches = 0
+        probed = "_fused" in w._runner_cache
+        evals0, vg0, calls[0] = w.posterior_evals, w.gradient_evals, 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.sampling_steps(n, kernel=kind)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {c.__name__: c.launches for c in counters}
+        chunks = -(-n // w.config.chunk_size)
+        n_vg = w.gradient_evals - vg0
+        lp, best = w.most_likely_step()
+        pos, _ = w._history(n // 2)
+        xs = pos[:, :, w.spec.index("x0")].ravel()
+        st = w.state
+        finite = all(bool(torch.isfinite(getattr(st, k)).all()) for k in
+                     ("position", "logprob", "best_position", "best_logprob", "l_matrix",
+                      "chees"))
+        # kernel 1 against autograd: the walkers whose stored logprob is
+        # not autograd's were last moved by the rescue (kernel 1 at W/2)
+        lp_ag = eval_vg(st.position)[0]
+        moved = st.logprob != lp_ag
+        gap = ((st.logprob - lp_ag).abs() / lp_ag.abs().clamp_min(1.0))
+        r = {"steps": n, "seconds": secs, "ms_per_step": secs * 1e3 / n,
+             "chain_steps_per_sec": W_FLAGSHIP * n / secs, "gradient_evals": n_vg,
+             "gradient_evals_per_step": n_vg / n, "posterior_evals": w.posterior_evals - evals0,
+             "ms_per_gradient_eval": secs * 1e3 / n_vg,
+             "best_lp": lp, "lp_generating": lp_gen, "x0_best": best["x0"],
+             "x0_median": float(np.median(xs)), "x0_std": float(xs.std()),
+             "acceptance": w.acceptance(), "band": resolve_accept_band(
+                 dataclasses.replace(w.config, kernel=kind)),
+             "peak_memory_bytes": peak, "launches": launches,
+             "fused_launches_inside_eval_vg": inside[0],
+             "rescued_walkers": int(moved.sum()),
+             "kernel1_vs_autograd_max_rel": float(gap[moved].max()) if bool(moved.any())
+             else None}
+        if kind == "chees":
+            r["chees_trajectory"] = {k: v.tolist() if hasattr(v, "tolist") else v
+                                     for k, v in w.chees_trajectory().items()}
+        results[kind] = r
+        emit({"phase": f"gradient_{kind}", "W": W_FLAGSHIP, **r})
+        low, high = r["band"]
+        check(finite, f"{kind}: non-finite state")
+        check(lp >= lp_gen - 5.0, f"{kind}: best lp {lp} < lp(generating) {lp_gen} - 5")
+        check(abs(best["x0"] - x0) <= 0.01 * x0, f"{kind}: best x0 {best['x0']} not within 1%")
+        check(abs(r["x0_median"] - x0) <= 0.01 * x0,
+              f"{kind}: sampled x0 median {r['x0_median']} not within 1% of {x0}")
+        check(low - GRADIENT_BAND_SLACK <= r["acceptance"] <= high + GRADIENT_BAND_SLACK,
+              f"{kind}: acceptance {r['acceptance']} outside its band {low}-{high} "
+              f"widened by {GRADIENT_BAND_SLACK}")
+        check(max(r["x0_std"], ens_std) <= ENSEMBLE_STD_FACTOR * min(r["x0_std"], ens_std),
+              f"{kind}: x0 std {r['x0_std']} not within {ENSEMBLE_STD_FACTOR}x of the "
+              f"ensemble journeys' {ens_std}")
+        check(inside[0] == 0 and calls[0] == n_vg > 0,
+              f"{kind}: {inside[0]} kernel-1 launches inside {calls[0]} gradient evaluations "
+              f"(the gradients must come from the plain posterior)")
+        check(r["posterior_evals"] == 2 * chunks
+              and launches["fused_posterior"] == 2 * chunks + (0 if probed else 1),
+              f"{kind}: {launches['fused_posterior']} kernel-1 launches, want the rescue's "
+              f"2 a chunk x {chunks} chunks (+1 probe: {not probed})")
+        check(r["kernel1_vs_autograd_max_rel"] is None
+              or r["kernel1_vs_autograd_max_rel"] <= RTOL["float32"],
+              f"{kind}: kernel 1's logprob {r['kernel1_vs_autograd_max_rel']} from autograd's")
+        rescue_launches += 2 * chunks
+    w._log_post = real
+    # one eval_vg at the flagship's shape: the wrapper (CUDA events) and
+    # its kernels (torch.profiler)
+    pos = w.state.position
+    vg_ms = cuda_time_ms(lambda: eval_vg(pos), 20)
+    vg_device_ms, vg_kernels = _device_ms(lambda: eval_vg(pos), 5)
+    # the chees step's host sync: a profiled chees chunk beside an hmc one
+    prof = {}
+    for kind in ("hmc", "chees"):
+        cfg = dataclasses.replace(w.config, kernel=kind, chunk_size=GRADIENT_PROFILE_STEPS)
+        run, _ = build_chunk_runner(w._batched_posterior(), w.ndim, cfg,
+                                    eval_plain=w._log_post)
+        prof[kind] = _profile_chunks(f"profile_{kind}_chunk", run, w.state, w.generator,
+                                     args=(False, False, True), steps=GRADIENT_PROFILE_STEPS)
+    ess = {k: _kernel_ess(w, k, c)[0] for k, c in GRADIENT_ESS_CHUNKS.items()}
+    # What a chees step costs beyond its evaluations at hmc's price of one
+    # (an upper bound on the cost of its host sync, which shares it with
+    # the ChEES gradient's reductions); the host's time blocked in the
+    # sync itself is the device's queue draining, not a cost.
+    hmc_ms_per_eval = results["hmc"]["seconds"] * 1e3 / results["hmc"]["gradient_evals"]
+    chees = results["chees"]
+    emit({"phase": "gradient", "W": W_FLAGSHIP, "warm_in_steps": N_GRADIENT_WARM,
+          "warm_in_seconds": warm_secs, "eval_vg_ms": vg_ms,
+          "eval_vg_device_ms": vg_device_ms, "eval_vg_kernels": vg_kernels,
+          "chees_overhead_ms_per_step": chees["ms_per_step"]
+          - chees["gradient_evals_per_step"] * hmc_ms_per_eval,
+          "chees_sync_host_blocked_ms_per_step": prof["chees"]["host_sync_ms"]
+          / GRADIENT_PROFILE_STEPS,
+          "device_busy_share": {k: p["device_busy_share"] for k, p in prof.items()},
+          "ess": ess, "ess_per_sec_mala": ess["mala"]["ess_per_sec"],
+          "ess_per_sec_chees": ess["chees"]["ess_per_sec"]})
+    # kernel 1 at the rescue's shape: the W/2 proposals of a half-round
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    half = w.state.position[: W_FLAGSHIP // 2]
+    rel, abs_err = _fused_check(post, half, RTOL["float32"], "rescue half-round")
+    one = _kernel1(half, post, ptxas, 200)
+    return {"name": "fused_posterior_rescue", "route": "cuda",
+            "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+            "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
+            "launches": rescue_launches, "max_abs_err": abs_err, "ms": one["ms"],
+            "kernel_ms": one["kernel_ms"], "plan": one["plan"],
+            "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(half, post), 5),
+            **_bounds(posterior_census(post), 1, fused_bytes(post, half.shape[0]),
+                      ceilings, walkers=half.shape[0]),
+            "library_ms": None}
+
+
+def _gaussian_walker(cov, n_walkers, config=None, start=0.1, jitter=1.0):
+    """A walker on a zero-mean Gaussian of covariance ``cov`` (a custom
+    likelihood: the plain posterior, as bench.py's d = 24 row)."""
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+
+    d = cov.shape[0]
+    keys = tuple(f"p{i}" for i in range(d))
+    prec = torch.as_tensor(np.linalg.inv(cov), dtype=torch.float32, device=DEVICE)
+
+    def loglik(fn, params, dataset):
+        v = torch.stack([params[k].reshape(-1) for k in keys], dim=1)
+        return -0.5 * torch.sum((v @ prec) * v, dim=1)
+
+    return mfit.walker_create(
+        function=lambda x, p: torch.zeros_like(x), data=([0.0, 1.0], [0.0, 0.0]),
+        params={k: start for k in keys}, log_likelihood=loglik, n_walkers=n_walkers,
+        seed=0, walker_jitter=jitter, config=config, dtype=torch.float32, device=DEVICE)
+
+
+# bench.py:327-370's correlated Gaussian: d = 24, W = 2048, 20 rwm chunks
+# of warm-in, then chees: 2 chunks of adaptation, 1 warm and 2 timed
+# history chunks, each of CHEES_D24_CHUNK steps (bench.py: 10 chunks of
+# adaptation and 200-step chunks).  Cut for time: the trajectory reaches
+# its 64-leapfrog cap within ~100 steps, and a step then costs ~87 ms on
+# the host-bound W = 2048 path (an NVIDIA H100 80GB HBM3 at 700 W took
+# 177 s for bench.py's 2000 adaptation steps).  Gate, fixed before the first chip run: every
+# marginal variance of the timed chunks within 25 % of the target's.
+CHEES_D24_VAR_RTOL = 0.25
+CHEES_D24_CHUNK = 100
+
+
+def phase_chees_d24():
+    import dataclasses
+    import numpy as np
+    import torch
+
+    d, W = 24, 2048
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    scales = np.geomspace(1.0, 300.0, d) ** 0.5
+    cov = (q * scales ** 2) @ q.T
+    w = _gaussian_walker(cov, W)
+    run = w._runner(with_history=False)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        w.state, _ = run(w.state, True, True, True, generator=w.generator)
+    w.config = dataclasses.replace(w.config, kernel="chees", chunk_size=CHEES_D24_CHUNK)
+    run = w._runner(with_history=False)
+    for _ in range(2):
+        w.state, _ = run(w.state, True, True, True, generator=w.generator)
+    torch.cuda.synchronize()
+    warm_secs = time.perf_counter() - t0
+    res, pos = _kernel_ess(w, "chees", 2)
+    var = pos.reshape(-1, d).var(dim=0).double().cpu().numpy()
+    rel = np.abs(var / np.diag(cov) - 1.0)
+    out = {"phase": "chees_d24", "d": d, "W": W, "warm_seconds": warm_secs, **res,
+           "chees_trajectory": w.chees_trajectory()["leapfrog"].tolist(),
+           "max_var_rel_err": float(rel.max())}
+    emit(out)
+    check(float(rel.max()) <= CHEES_D24_VAR_RTOL,
+          f"chees_d24: marginal variances {rel.max()} from the target's (> "
+          f"{CHEES_D24_VAR_RTOL})")
+    return out
+
+
+# Blocked proposals: a block-diagonal Gaussian of 2 hyper + 8 local blocks
+# of 3 (d = 26), W = 4096, rwm (adaptive_steps) then mala (sampling_steps);
+# then blocked rwm on the chunk kernel: the global fit of two datasets
+# ordered [linewidth, x0, mix | scale, bg0, bg1 | scale2, bg02, bg12].
+# Gates, fixed before the first chip run: L's cross-block entries exactly
+# 0 and its in-block ones refreshed, the sampled variances within 25 % of
+# the target's, and on the chunk kernel the journeys' best lp and x0 gates
+# with the acceptance in rwm's band widened by 0.1.
+BLOCKED = {"block_hyper": 2, "block_local": 3, "block_count": 8}
+N_BLOCKED = {"rwm": 4000, "mala": 2000}
+BLOCKED_VAR_RTOL = 0.25
+BLOCKED_CHUNK = {"block_hyper": 3, "block_local": 3, "block_count": 2}
+N_BLOCKED_CHUNK = 6000
+
+
+def _block_mask(bh, bl, nb):
+    import numpy as np
+
+    d = bh + nb * bl
+    m = np.zeros((d, d), bool)
+    m[:bh, :bh] = True
+    for s in range(nb):
+        m[bh + s * bl:bh + (s + 1) * bl, bh + s * bl:bh + (s + 1) * bl] = True
+    return m
+
+
+def _check_blocks(L, mask, what):
+    """Cross-block entries exactly 0; in-block off-diagonals refreshed."""
+    import numpy as np
+
+    L = L.detach().cpu().numpy()
+    check(np.all(L[:, ~mask] == 0.0), f"{what}: L has non-zero cross-block entries")
+    check(np.all(np.abs(np.tril(L, k=-1)).sum(axis=(1, 2)) > 0.0),
+          f"{what}: L's blocks were never refreshed (no off-diagonal entries)")
+
+
+def phase_blocked(counters):
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.ops.chunk_kernel import build_chunk_kernel
+
+    mask = _block_mask(BLOCKED["block_hyper"], BLOCKED["block_local"],
+                       BLOCKED["block_count"])
+    d = mask.shape[0]
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((d, d))
+    sd = np.geomspace(0.5, 5.0, d)
+    cov = np.where(mask, a @ a.T / d + np.eye(d), 0.0) * np.outer(sd, sd)
+    w = _gaussian_walker(cov, 4096, config=mfit.FitConfig(**BLOCKED))
+    out = {"phase": "blocked", "d": d, "W": 4096, "layout": BLOCKED}
+    for kind, n in N_BLOCKED.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "rwm":
+            w.adaptive_steps(n, temperature=1.0, auto=None)
+        else:
+            w.sampling_steps(n, kernel=kind)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pos, _ = w._history(n // 2)
+        var = pos.reshape(-1, d).var(axis=0)
+        rel = np.abs(var / np.diag(cov) - 1.0)
+        out[kind] = {"steps": n, "seconds": secs, "ms_per_step": secs * 1e3 / n,
+                     "acceptance": w.acceptance(), "max_var_rel_err": float(rel.max())}
+        _check_blocks(w.state.l_matrix, mask, f"blocked {kind}")
+        check(float(rel.max()) <= BLOCKED_VAR_RTOL,
+              f"blocked {kind}: sampled variances {rel.max()} from the target's "
+              f"(> {BLOCKED_VAR_RTOL})")
+    # blocked rwm on the chunk kernel
+    g = synthetic.global_fit(2)
+    order = ("linewidth", "x0", "mix", "scale", "bg0", "bg1", "scale2", "bg02", "bg12")
+    truth = {k: g["truth"][k] for k in order}
+    cfg = mfit.FitConfig(posterior_impl="chunk_kernel", **BLOCKED_CHUNK)
+    wc = mfit.walker_create(function=g["functions"], data=g["data"], params=truth,
+                            data_error=1e-7, n_walkers=W_FLAGSHIP, seed=0,
+                            walker_jitter=ENSEMBLE_JITTER, config=cfg,
+                            dtype=torch.float32, device=DEVICE)
+    check(wc.spec.keys == order, f"blocked chunk: parameter order {wc.spec.keys}")
+    lp_gen = float(mfit.walker_create(function=g["functions"], data=g["data"],
+                                      params=truth, data_error=1e-7, n_walkers=1,
+                                      dtype=torch.float64, device=DEVICE).state.logprob[0])
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wc.adaptive_steps(N_BLOCKED_CHUNK, temperature=1.0, auto=None, collect_history=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    lp, best = wc.most_likely_step()
+    acc = wc.acceptance()
+    cmask = _block_mask(BLOCKED_CHUNK["block_hyper"], BLOCKED_CHUNK["block_local"],
+                        BLOCKED_CHUNK["block_count"])
+    _check_blocks(wc.state.l_matrix, cmask, "blocked chunk kernel")
+    ck = build_chunk_kernel(wc.terms, wc.spec, wc.config, W_FLAGSHIP, torch.float32)
+    kcheck = _chunk_check(ck, wc.state, wc.state.l_matrix[0], "blocked chunk kernel",
+                          dense_l=False)
+    out["chunk_kernel"] = {"W": W_FLAGSHIP, "d": len(order), "layout": BLOCKED_CHUNK,
+                           "steps": N_BLOCKED_CHUNK, "seconds": secs,
+                           "chain_steps_per_sec": W_FLAGSHIP * N_BLOCKED_CHUNK / secs,
+                           "best_lp": lp, "lp_generating": lp_gen, "x0": best["x0"],
+                           "acceptance": acc, "launches": launches, "check": kcheck}
+    emit(out)
+    check(launches["chunk_rwm"] == -(-N_BLOCKED_CHUNK // cfg.chunk_size),
+          f"blocked chunk: {launches['chunk_rwm']} chunk-kernel launches")
+    check(lp >= lp_gen - 5.0, f"blocked chunk: best lp {lp} < lp(generating) {lp_gen} - 5")
+    check(abs(best["x0"] - truth["x0"]) <= 0.01 * truth["x0"],
+          f"blocked chunk: x0 {best['x0']} not within 1%")
+    check(0.2 - GRADIENT_BAND_SLACK <= acc <= 0.4 + GRADIENT_BAND_SLACK,
+          f"blocked chunk: acceptance {acc} outside 0.2-0.4 widened by {GRADIENT_BAND_SLACK}")
+    return out
+
+
 def _slice_noise(W, steps, cfg, generator):
     """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
     G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
@@ -1274,9 +1703,12 @@ def phase_slice_poll(w):
     return out
 
 
-def _profile_chunks(name, runner, state, generator, args=(True, True, False)):
+def _profile_chunks(name, runner, state, generator, args=(True, True, False), steps=200):
     """Wall clock of two warm chunks of ``runner``, then the device time by
-    kernel (torch.profiler) of two more; emits the ``name`` phase."""
+    kernel (torch.profiler) of two more and the host's time blocked in
+    device-to-host reads (``aten::_local_scalar_dense``: a chees step's
+    leapfrog count, a slice loop's poll); emits the ``name`` phase and
+    returns it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1301,11 +1733,17 @@ def _profile_chunks(name, runner, state, generator, args=(True, True, False)):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit({"phase": name, "W": W_FLAGSHIP, "chunk_wall_ms": wall_ms,
-          "device_busy_ms": device_ms if rows else None,
-          "device_busy_share": device_ms / wall_ms if rows else None,
-          "kernels_per_chunk": sum(r[2] for r in rows),
-          "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]})
+    syncs = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
+    out = {"phase": name, "W": int(state.position.shape[0]), "steps": steps,
+           "chunk_wall_ms": wall_ms,
+           "device_busy_ms": device_ms if rows else None,
+           "device_busy_share": device_ms / wall_ms if rows else None,
+           "kernels_per_chunk": sum(r[2] for r in rows),
+           "host_sync_ms": sum(e.cpu_time_total for e in syncs) / 1e3 / 2,
+           "host_syncs_per_chunk": sum(e.count for e in syncs) / 2,
+           "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]}
+    emit(out)
+    return out
 
 
 def phase_profile(slice_walker):
@@ -1322,7 +1760,7 @@ def phase_profile(slice_walker):
     cfg = dataclasses.replace(sw.config, kernel="slice", chunk_size=SLICE_POLL_STEPS)
     run, _ = kernel.build_chunk_runner(sw._batched_posterior(), sw.ndim, cfg)
     _profile_chunks("profile_slice_chunk", run, sw.state, sw.generator,
-                    args=(True, True, True))
+                    args=(True, True, True), steps=SLICE_POLL_STEPS)
 
 
 def main():
@@ -1358,10 +1796,13 @@ def main():
     phase_nv(ceilings, counters, ptxas)
     phase_nv_chunk(ceilings, counters, ptxas)
     half = phase_half_width(ceilings, ptxas)
-    phase_tempered(ceilings, counters)
+    phase_tempered(ceilings, counters, ptxas)
     ensemble, slice_walker = phase_ensemble(counters)
     phase_slice_poll(slice_walker)
     phase_profile(slice_walker)
+    rescue_row = phase_gradient(ceilings, counters, ptxas, ensemble)
+    phase_chees_d24()
+    phase_blocked(counters)
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -1377,6 +1818,8 @@ def main():
         "plan": h["plan"], "plain_ms": h["plain_ms"],
         **{k: h[k] for k in ("bound_ms", "bound_by", "opmix_bound_ms")},
         "library_ms": None})
+    # kernel 1 on the gradient samplers' rescue half-rounds (W/2)
+    kernels.append(rescue_row)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

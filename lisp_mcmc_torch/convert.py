@@ -61,8 +61,9 @@ def state_from_numpy(arrays: Mapping, dtype=torch.float64,
     ``arrays`` holds ``position, logprob, best_position, best_logprob,
     l_matrix, m_sum, m_outer, m_count`` (the JAX ``WalkerState`` layout:
     G adaptation groups, G read from ``l_matrix`` (G, d, d); a (d, d) L
-    is one group), optionally ``age``, ``anneal_step`` and ``key`` (the
-    raw key words, e.g. ``jax.random.key_data(state.key)``).  The state
+    is one group), optionally ``chees`` ((G, 4), the ChEES trajectory
+    state; absent reads as zeros), ``age``, ``anneal_step`` and ``key``
+    (the raw key words, e.g. ``jax.random.key_data(state.key)``).  The state
     does not depend on the fit's terms: a global fit's carries across as
     a one-term fit's does.
     """
@@ -73,9 +74,12 @@ def state_from_numpy(arrays: Mapping, dtype=torch.float64,
         t["l_matrix"] = t["l_matrix"][None]
     W, d = t["position"].shape
     G = t["l_matrix"].shape[0]
+    chees = arrays.get("chees")
+    t["chees"] = (torch.zeros((G, 4), **kw) if chees is None
+                  else torch.as_tensor(np.array(chees), **kw))
     shapes = {"logprob": (W,), "best_position": (W, d), "best_logprob": (W,),
               "l_matrix": (G, d, d), "m_sum": (G, d), "m_outer": (G, d, d),
-              "m_count": (G,)}
+              "m_count": (G,), "chees": (G, 4)}
     bad = {k: tuple(t[k].shape) for k, s in shapes.items() if tuple(t[k].shape) != s}
     if bad:
         raise ValueError(f"state_from_numpy: with position ({W}, {d}) and {G} "

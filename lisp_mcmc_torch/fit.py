@@ -15,9 +15,9 @@ L4 layer (mcmc-fitting.lisp):
   - ``mcmc-fit`` (1165-1176): create + adaptive steps;
 and the JAX package's adaptation groups (``group_ids``, ``n_groups``),
 ``tempered_steps`` (parallel tempering, ``auto_ladder``, ``swap_rates``,
-``respace_ladder``) and ``sampling_steps`` with the stretch, demc and slice
-samplers.  Per-walker ``aux`` data (``batched.py``) and the gradient
-samplers are not ported yet.
+``respace_ladder``), ``sampling_steps`` with every sampler (rwm, stretch,
+demc, slice, mala, hmc, chees) and ``chees_trajectory``.  Per-walker
+``aux`` data (``batched.py``) is not ported yet.
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -185,6 +185,7 @@ class Walker:
         self._swap_trace: list = []                  # per-chunk (K-1,) swap rates
         self._swap_betas: np.ndarray | None = None   # last tempered ladder
         self.posterior_evals = 0                     # batched-posterior calls in chunks
+        self.gradient_evals = 0                      # value-and-gradient evaluations
 
     # ------------------------------------------------------------------ build
 
@@ -220,13 +221,16 @@ class Walker:
         return torch.where(torch.isfinite(lp), lp, _neg_floor(lp.dtype))
 
     def _batched_posterior(self):
-        """The per-step posterior: the fused kernel or the plain version.
+        """The value-only posterior: the fused kernel or the plain version.
 
         ``"auto"`` takes the kernel on CUDA when the fit is inside its
         coverage (``ops.loglik_kernel.kernel_coverage``) and the plain path
         otherwise; ``"kernel"`` and ``"chunk_kernel"`` require the
         coverage and raise outside it.  A kernel that fails to build or
-        launch raises.
+        launch raises.  The gradient samplers' values and gradients come
+        from autograd through the plain posterior whatever this returns
+        (``kernel.make_eval_vg``); only their value-only evaluations (the
+        rescue) take it.
         """
         impl = self.config.posterior_impl
         if impl == "plain":
@@ -289,7 +293,8 @@ class Walker:
                                            self.n_walkers, self.dtype)
             run, run_hist = build_chunk_runner(
                 self._batched_posterior(), self.spec.ndim, cfg,
-                chunk_kernel=chunk, group_ids=self.group_ids, n_groups=self.n_groups)
+                chunk_kernel=chunk, group_ids=self.group_ids, n_groups=self.n_groups,
+                eval_plain=self._log_post)
             self._runner_cache[cache_key] = run_hist if with_history else run
         return self._runner_cache[cache_key]
 
@@ -466,6 +471,7 @@ class Walker:
         self._lpmax_trace.append(out["logprob_max"])
         self._lpmean_trace.append(out["logprob_mean"])
         self.posterior_evals += out["posterior_evals"]
+        self.gradient_evals += out["gradient_evals"]
         if "swap_rate" in out:
             self._swap_trace.append(out["swap_rate"])   # device (K-1,)
         # Only the last few settle windows are ever read.
@@ -598,6 +604,7 @@ class Walker:
         if K < 2 or self.n_walkers % K:
             raise ValueError(f"rungs must be >= 2 and divide n_walkers={self.n_walkers}")
         prev_config, prev_groups = self.config, (self.group_ids, self.n_groups)
+        prev_chees = self.state.chees
         d = self.ndim
         kw = dict(dtype=self.dtype, device=self.device)
         try:
@@ -607,7 +614,7 @@ class Walker:
             self.state = dataclasses.replace(
                 self.state, l_matrix=self.state.l_matrix[0].expand(K, d, d).clone(),
                 m_sum=torch.zeros((K, d), **kw), m_outer=torch.zeros((K, d, d), **kw),
-                m_count=torch.zeros((K,), **kw))
+                m_count=torch.zeros((K,), **kw), chees=torch.zeros((K, 4), **kw))
             self.config = dataclasses.replace(
                 self.config, tempering_rungs=K, kernel="rwm", n_steps=int(n), auto=None,
                 temperature=float(t_max if t_max is not None
@@ -636,11 +643,12 @@ class Walker:
         finally:
             self.config = prev_config
             self.group_ids, self.n_groups = prev_groups
-            # Collapse the group axis back: keep the cold rung's proposal.
+            # Collapse the group axis back: keep the cold rung's proposal,
+            # and restore the trajectory state the rwm search never used.
             self.state = dataclasses.replace(
                 self.state, l_matrix=self.state.l_matrix[:1],
                 m_sum=torch.zeros((1, d), **kw), m_outer=torch.zeros((1, d, d), **kw),
-                m_count=torch.zeros((1,), **kw))
+                m_count=torch.zeros((1,), **kw), chees=prev_chees[:1].to(**kw))
 
     def swap_rates(self) -> dict:
         """Replica-exchange diagnostics of the last tempered run (JAX
@@ -661,13 +669,14 @@ class Walker:
     def sampling_steps(self, n: int, kernel: str = "mala", **kwargs):
         """Cold sampling phase at T=1 with the given kernel (JAX
         ``Walker.sampling_steps``, fit.py:986-1017): after an anneal, draw
-        posterior samples with ``kernel="stretch"`` (affine-invariant
-        moves), ``"demc"`` (differential evolution) or ``"slice"``
-        (ensemble slice sampling), none of which has an L to adapt.
-        ``auto`` defaults to None; other keywords go to
-        :meth:`adaptive_steps`.  The default ``"mala"``, and ``"hmc"`` and
-        ``"chees"``, raise ``NotImplementedError`` until the gradient
-        samplers are ported (ROADMAP.md)."""
+        posterior samples with ``kernel="mala"`` (the default: Langevin
+        drift), ``"hmc"`` (leapfrog trajectories of ``hmc_leapfrog``
+        steps), ``"chees"`` (HMC whose trajectory length adapts itself;
+        see :meth:`chees_trajectory`), ``"stretch"`` (affine-invariant
+        moves), ``"demc"`` (differential evolution), ``"slice"`` (ensemble
+        slice sampling) or ``"rwm"``.  The gradient samplers differentiate
+        the plain posterior by autograd.  ``auto`` defaults to None; other
+        keywords go to :meth:`adaptive_steps`."""
         prev_config = self.config
         self.config = dataclasses.replace(self.config, kernel=kernel)
         try:
@@ -675,6 +684,20 @@ class Walker:
                                 **kwargs)
         finally:
             self.config = prev_config
+
+    def chees_trajectory(self) -> dict:
+        """ChEES trajectory-length diagnostics (JAX
+        ``Walker.chees_trajectory``, fit.py:903-922): ``{"leapfrog": (G,),
+        "budget", "at_cap"}``, the adapted length t per group in leapfrog
+        steps (a step integrates ``ceil(U(0,1) t)`` steps, t/2 gradient
+        evaluations on average), ``chees_max_leapfrog``, and whether a
+        group sits within 1 % of that cap.  Before any chees step t reads
+        ``hmc_leapfrog``."""
+        t_init = float(max(1, self.config.hmc_leapfrog))
+        t = t_init * np.exp(_host(self.state.chees)[:, 0].astype(np.float64))
+        budget = int(self.config.chees_max_leapfrog)
+        return {"leapfrog": t, "budget": budget,
+                "at_cap": bool(np.any(t >= 0.99 * budget))}
 
     # ------------------------------------------------------------- query verbs
 

@@ -345,6 +345,30 @@ def test_new_paths_take_the_kernel_on_cuda(cuda):
     assert tlk.fused_posterior.launches - before == w.posterior_evals + 1
 
 
+def test_gradient_path_is_plain_and_the_rescue_runs_kernel_1(cuda):
+    """Under ``"auto"`` on CUDA a mala fit differentiates the plain
+    posterior (no kernel-1 launch inside a gradient evaluation, as the JAX
+    package keeps its gradient samplers off Pallas) and its rescue's two
+    half-rounds a chunk launch kernel 1 at W/2."""
+    w = _walker(None, 1024, torch.float32, 1e-3)
+    real, inside, calls = w._log_post, [0], [0]
+
+    def watched(x):
+        before = tlk.fused_posterior.launches
+        out = real(x)
+        inside[0] += tlk.fused_posterior.launches - before
+        calls[0] += x.requires_grad        # a gradient evaluation (not the probe)
+        return out
+
+    w._log_post = watched
+    before = tlk.fused_posterior.launches
+    w.sampling_steps(400, kernel="mala")
+    assert calls[0] == w.gradient_evals == 2 * 201 and inside[0] == 0
+    assert w.posterior_evals == 2 * 2                   # two half-rounds a chunk
+    assert tlk.fused_posterior.launches - before == w.posterior_evals + 1   # + the probe
+    assert torch.isfinite(w.state.logprob).all()
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.float64, 1e-12)])
 def test_chain_probe_matches_plain(cuda, dtype, rtol):
     x = torch.linspace(0.5, 2.0, 1000, dtype=dtype, device=cuda)  # a ragged block

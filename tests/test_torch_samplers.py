@@ -16,8 +16,9 @@ ungrouped (W = 256, half-ensembles of Bh = 128: the slice sampler's
 median of an even count) and with two contiguous groups (B = 54,
 Bh = 27).  ``sampling_steps`` is held against the JAX verb the same way,
 its walker's runners drawing from the JAX walker's key.  The guards
-(span, odd blocks, Bh < 2, irregular groups, a collapsed ensemble, the
-gradient samplers) raise as in the JAX package.
+(span, odd blocks, Bh < 2, irregular groups, a collapsed ensemble) raise
+as in the JAX package, and a collapsed ensemble does not stop the
+gradient samplers.
 """
 
 import dataclasses
@@ -303,9 +304,13 @@ def test_collapsed_ensemble_and_gradient_samplers_raise():
     w2.group_ids, w2.n_groups = np.repeat(np.arange(2), 32), 2
     with pytest.raises(ValueError, match="zero spread"):
         w2.sampling_steps(200, kernel="demc")
+    # The gradient samplers move along L, so a collapsed ensemble does not
+    # stop them (the JAX package checks only the ensemble samplers).
     for kind in ("mala", "hmc", "chees"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            w2.sampling_steps(200, kernel=kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        w2.sampling_steps(200)                              # the default, mala
-    assert w2.config.kernel == "rwm"
+        w.sampling_steps(200, kernel=kind)
+    w.sampling_steps(200)                                   # the default, mala
+    assert w.config.kernel == "rwm" and w2.config.kernel == "rwm"
+    # mala twice (201 a chunk: the chunk's start and a step each), hmc
+    # 8 a step, chees at least one a step
+    assert w.gradient_evals >= 2 * 201 + (8 * 200 + 1) + 201
+    assert np.isfinite(w.state.logprob.numpy()).all()
