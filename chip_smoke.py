@@ -91,12 +91,34 @@ an H100) and the CUDA toolkit.  It
     rwm on the chunk kernel (the global pair ordered hyper-first, W =
     131072), the kernel against its plain version with the fit's
     block-diagonal L, and the journeys' gates;
-21. prints the ``kernels`` summary line (each kernel's time, launches on
+21. ``priors``: named priors as the kernels' declared tables.  Kernel 1
+    against its plain version at W = 131072, N = 334, float32 and float64,
+    with ``synthetic.flagship_prior_spec`` (a truncated Gaussian on x0, a
+    LogNormal on the linewidth, a one-sided truncated Gaussian on mix,
+    boxes on the rest; walkers past every wall and at the LogNormal's x
+    <= 0) and with an ``MVGaussian`` over (linewidth, x0, mix) built from
+    the named-prior journey's ``covariance_matrix()``, timed beside the
+    flat prior; kernel 2 against its plain version on one chunk with the
+    spec; the named-prior journey (``walker_create(log_prior=spec)``,
+    ``sample_region(n=1000)``, ``adaptive_steps(30000, temperature=10)``
+    with history on the default path: the flagship's gates with lp(gen)
+    under the same prior, one kernel-1 launch a step, nothing of the prior
+    left for torch), then on ``posterior_impl="chunk_kernel"`` (10000
+    steps without history, the same gates); ``optimize(400, rounds=2)`` on
+    the journey's walker and ``optimize(400, rounds=4)`` on the global
+    journey's (no walker falls, the best lp does not fall and stays >=
+    lp(gen) - 5; ms a step, peak memory, the lp gained); a
+    ``unit_cube_view`` of the journey's walker, its posterior identity
+    on 1024 walkers (1e-5) and, after ``adaptive_steps(2000,
+    temperature=1)``, its theta-image's median x0 within 1 % of the fit's;
+22. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
-    width, with its launches on the ensemble journeys, and at the rescue's
-    W/2, with its launches on the gradient journeys, and its rows with
-    the kernel-only ms and the plan), the card line and, last,
+    width, with its launches on the ensemble journeys, at the rescue's
+    W/2, with its launches on the gradient journeys, and with the named
+    prior, with its launches on the named-prior journey; kernel 2 with the
+    named prior, with its launches on its chunk-kernel journey; kernel 1's
+    rows with the kernel-only ms and the plan), the card line and, last,
     ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
@@ -793,6 +815,7 @@ def phase_global(ceilings, counters, ptxas):
                               "chain_steps_per_sec": W_FLAGSHIP * N_GLOBAL / secs,
                               "launches": launches,
                               **_global_report(w, g, lp_gen, "global journey")}
+    global_walker = w
 
     w = _global_walker(g, g["start"], W_FLAGSHIP, torch.float32, 0.05,
                        config=mfit.FitConfig(posterior_impl="chunk_kernel"))
@@ -810,6 +833,7 @@ def phase_global(ceilings, counters, ptxas):
                                    "launches": launches,
                                    **_global_report(w, g, lp_gen, "global chunk journey")}
     emit(out)
+    return global_walker, lp_gen
 
 
 def phase_chunk_wide(ceilings, ptxas):
@@ -1648,6 +1672,239 @@ def phase_blocked(counters):
     return out
 
 
+# The named-prior phase: the journey's sample_region steps, its optimize
+# schedule and the global polish (examples/reference_journey.py:123), the
+# unit-cube view's steps and identity tolerance.
+N_PRIOR_REGION = 1000
+N_PRIOR_JOURNEY = 30000
+N_PRIOR_CHUNK = 10000
+PRIOR_OPTIMIZE = (400, 2)
+GLOBAL_OPTIMIZE = (400, 4)
+N_UNIT_CUBE = 2000
+UNIT_CUBE_WALKERS = 1024
+UNIT_CUBE_RTOL = 1e-5
+
+
+def _mv_from_fit(w, keys=("linewidth", "x0", "mix"), take=None):
+    """Experiment chaining: an MVGaussian over ``keys`` from a fit's last
+    ``take`` steps, their median and their ``covariance_matrix()``."""
+    import numpy as np
+    import lisp_mcmc_torch as mfit
+
+    idx = [w.spec.index(k) for k in keys]
+    cov = np.asarray(w.covariance_matrix(take), np.float64)[np.ix_(idx, idx)]
+    med = w.median_params(take)
+    return mfit.MVGaussian({k: med[k] for k in keys}, cov)
+
+
+def _optimize_report(w, n, rounds, what, lp_gen):
+    """``w.optimize(n, rounds)`` with its gates: no walker's logprob falls,
+    the best lp does not fall and stays >= lp(gen) - 5."""
+    import torch
+
+    lp0 = w.state.logprob.clone()
+    best0 = w.most_likely_step()[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w.optimize(n, rounds=rounds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    best1 = w.most_likely_step()[0]
+    fell = int((w.state.logprob < lp0).sum())
+    check(fell == 0, f"{what}: {fell} walkers' logprob fell")
+    check(best1 >= best0, f"{what}: the best lp fell from {best0} to {best1}")
+    check(best1 >= lp_gen - 5.0, f"{what}: best lp {best1} < lp(generating) {lp_gen} - 5")
+    return {"steps": n, "rounds": rounds, "seconds": secs,
+            "ms_per_step": 1e3 * secs / (n * rounds),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "best_lp_before": best0, "best_lp_after": best1, "lp_gained": best1 - best0,
+            "walkers_improved": float((w.state.logprob > lp0).float().mean())}
+
+
+def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
+    """Named priors as declared tables in both kernels: the named-prior
+    journey on both paths, each kernel against its plain version with the
+    spec (kernel 1 also with an MVGaussian from the journey's fit),
+    ``optimize`` and ``unit_cube_view``; returns the kernels line's two
+    rows."""
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
+                                                  chunk_census)
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP, N_POINTS
+
+    t_phase = time.perf_counter()
+    spec = synthetic.flagship_prior_spec()
+    out = {"phase": "priors", "W": W_FLAGSHIP, "d": 6, "N": N_POINTS,
+           "prior_spec": {k: v.to_meta() for k, v in spec.items()}}
+    lp_gen = float(_flagship_walker(1, torch.float64, DEVICE, params=FLAGSHIP, jitter=0.0,
+                                    log_prior=spec).state.logprob[0])
+
+    # c. the named-prior journey on the default path
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, log_prior=spec)
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    check(post is not None and post.rest == () and len(post.densities) == 3
+          and len(post.bounds) == 5,
+          "priors: the spec is not the kernels' table (5 walls, 3 densities, no torch rest)")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.sample_region(n=N_PRIOR_REGION)
+    torch.cuda.synchronize()
+    region_secs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    w.adaptive_steps(N_PRIOR_JOURNEY, temperature=10.0, auto=None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = {c.__name__: c.launches for c in counters}
+    # one launch a step: sample_region's greedy steps, the journey's, and
+    # the walker's one equivalence probe
+    want = N_PRIOR_REGION + N_PRIOR_JOURNEY + 1
+    check(launches["fused_posterior"] == want,
+          f"priors journey: {launches['fused_posterior']} kernel-1 launches, want {want}")
+    lp, best, acc = _quality(w, lp_gen, FLAGSHIP["x0"], "priors journey")
+    pos, _ = w._history()
+    ess = mfit.ess_from_history(torch.as_tensor(pos, device=DEVICE), w.spec.keys)
+    flat = next(p for p in OUT["phases"] if p.get("phase") == "journey_default")
+    journey = {"W": W_FLAGSHIP, "steps": N_PRIOR_JOURNEY, "seconds": secs,
+               "sample_region_seconds": region_secs,
+               "tuner_accept_log": w.tuner_accept_log,
+               "chain_steps_per_sec": W_FLAGSHIP * N_PRIOR_JOURNEY / secs,
+               "min_ess_per_sec": min(ess.values()) / secs, "ess": ess,
+               "best_lp": lp, "lp_generating": lp_gen, "x0": best["x0"], "best": best,
+               "acceptance": acc, "launches": launches}
+    journey["shift_vs_flagship_default"] = {
+        k: journey[k] / flat[k] - 1.0 for k in ("chain_steps_per_sec", "min_ess_per_sec")}
+    journey["kernel1_launches_per_step"] = (
+        (launches["fused_posterior"] - 1) / (N_PRIOR_REGION + N_PRIOR_JOURNEY))
+    out["journey_default"] = journey
+    print(json.dumps({"phase": "priors_journey", **journey}), flush=True)
+
+    # a. kernel 1 with the spec and with an MVGaussian from this fit
+    mv = _mv_from_fit(w, take=2000)
+    out["mv_gaussian"] = mv.to_meta()
+    out["kernel1"] = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        near = _flagship_walker(W_FLAGSHIP // 2, dtype, DEVICE, params=FLAGSHIP, jitter=0.02)
+        far = _flagship_walker(W_FLAGSHIP // 2, dtype, DEVICE)
+        base = torch.cat([near.state.position, far.state.position]).contiguous()
+        flat_post = prepare_fused_terms(near.terms, near.spec, dtype)
+        flat_ms = _kernel1(base, flat_post, ptxas)
+        for name, prior in (("prior_spec", spec), ("mv_gaussian", mv)):
+            wp = _flagship_walker(1, dtype, DEVICE, log_prior=prior, params=FLAGSHIP, jitter=0.0)
+            pp = prepare_fused_terms(wp.terms, wp.spec, dtype)
+            check(pp is not None and pp.rest == (), f"priors {name}: not a table")
+            # walkers past every wall among those near the peak (from the
+            # far start a scale past its box overflows the misfit in f32)
+            pos = torch.cat([synthetic.prior_edge_walkers(base[: W_FLAGSHIP // 2],
+                                                          wp.spec.keys),
+                             base[W_FLAGSHIP // 2:]]).contiguous()
+            rel, abs_err = _fused_check(pp, pos, RTOL[dname], f"priors kernel 1 {name} {dname}")
+            row = {"max_rel_err": rel, "max_abs_err": abs_err, **_kernel1(pos, pp, ptxas),
+                   "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, pp), 5),
+                   "flat_kernel_ms": flat_ms["kernel_ms"], "flat_ms": flat_ms["ms"],
+                   "walls": len(pp.bounds), "densities": len(pp.densities)}
+            if dtype == torch.float32:
+                row.update(_bounds(posterior_census(pp), 1, fused_bytes(pp, W_FLAGSHIP),
+                                   ceilings))
+                if name == "prior_spec":
+                    spec_post = pp
+            out["kernel1"][f"{name}_{dname}"] = row
+            print(json.dumps({"phase": f"priors_kernel1_{name}_{dname}", **row}), flush=True)
+
+    # b. kernel 2 with the spec: one chunk from the generating parameters
+    wc = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP, jitter=1e-3,
+                          log_prior=spec)
+    ck = build_chunk_kernel(wc.terms, wc.spec, wc.config, W_FLAGSHIP, torch.float32)
+    check(ck is not None and len(ck.post.densities) == 3, "priors: chunk kernel refused the spec")
+    L = synthetic.dense_l(3e-3 * np.asarray(list(FLAGSHIP.values()))).to(DEVICE)
+    out["chunk"] = {**_chunk_check(ck, wc.state, L, "priors chunk"),
+                    "launch": _chunk_launch(ck, ptxas)}
+    chunk_row_bounds = _bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
+                               chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings)
+    del wc
+
+    # c6. the same fit on the chunk kernel, without history
+    wk = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, log_prior=spec,
+                          config=mfit.FitConfig(posterior_impl="chunk_kernel"))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wk.adaptive_steps(N_PRIOR_CHUNK, temperature=10.0, auto=None, collect_history=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    chunk_launches = {c.__name__: c.launches for c in counters}
+    check(chunk_launches["chunk_rwm"] == N_PRIOR_CHUNK // wk.config.chunk_size,
+          f"priors chunk journey: {chunk_launches['chunk_rwm']} chunk-kernel launches")
+    lpk, bestk, acck = _quality(wk, lp_gen, FLAGSHIP["x0"], "priors chunk journey")
+    out["journey_chunk_kernel"] = {"steps": N_PRIOR_CHUNK, "seconds": secs,
+                                   "chain_steps_per_sec": W_FLAGSHIP * N_PRIOR_CHUNK / secs,
+                                   "best_lp": lpk, "x0": bestk["x0"], "acceptance": acck,
+                                   "launches": chunk_launches}
+    del wk
+
+    # d. optimize: the journey's walker, then the global polish
+    out["optimize"] = _optimize_report(w, *PRIOR_OPTIMIZE, "priors optimize", lp_gen)
+    out["optimize_global"] = _optimize_report(global_walker, *GLOBAL_OPTIMIZE,
+                                              "global optimize", global_lp_gen)
+
+    # e. the unit-cube view of the journey's walker
+    uw = mfit.unit_cube_view(w, spec)
+    u = uw.state.position[:UNIT_CUBE_WALKERS]
+    check(bool(((u > 0) & (u < 1)).all()), "unit cube: the view's start leaves the cube")
+    th = uw._theta_of_u(u)
+    lhs = uw._log_post(u).double()
+    rhs = (w._log_post(th) - spec.installed_vec(th, w.spec.keys)).double()
+    ident = float(((lhs - rhs).abs() / rhs.abs().clamp_min(1.0)).max())
+    check(ident <= UNIT_CUBE_RTOL, f"unit cube: posterior identity {ident} > {UNIT_CUBE_RTOL}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uw.adaptive_steps(N_UNIT_CUBE, temperature=1.0)
+    torch.cuda.synchronize()
+    view_secs = time.perf_counter() - t0
+    theta = uw._theta_of_u(uw.state.position)
+    x0_view = float(theta[:, w.spec.index("x0")].median())
+    x0_fit = w.median_params(N_UNIT_CUBE)["x0"]
+    check(abs(x0_view - x0_fit) <= 0.01 * abs(x0_fit),
+          f"unit cube: the view's median x0 {x0_view} not within 1% of the fit's {x0_fit}")
+    out["unit_cube"] = {"identity_rel_err": ident, "steps": N_UNIT_CUBE, "seconds": view_secs,
+                        "x0_median_view": x0_view, "x0_median_fit": x0_fit,
+                        "acceptance": uw.acceptance()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    k1 = out["kernel1"]["prior_spec_float32"]
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "fused_posterior_prior_spec", **common,
+         "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+         "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
+         "launches": launches["fused_posterior"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plan": k1["plan"],
+         "plain_ms": k1["plain_ms"], "flat_kernel_ms": k1["flat_kernel_ms"],
+         **_bounds(posterior_census(spec_post), 1, fused_bytes(spec_post, W_FLAGSHIP),
+                   ceilings)},
+        {"name": "chunk_rwm_prior_spec", **common,
+         "source": "lisp_mcmc_torch/csrc/chunk_rwm.cu",
+         "replaces": "lisp_mcmc_tpu/ops/chunk_pallas.py:95",
+         "launches": chunk_launches["chunk_rwm"],
+         "max_abs_err": out["chunk"]["logprob_max_abs_err"], "ms": out["chunk"]["ms"],
+         "plain_ms": out["chunk"]["plain_ms"], **chunk_row_bounds,
+         "registers": out["chunk"]["launch"]["registers"],
+         "threads": out["chunk"]["launch"]["threads"],
+         "blocks_per_sm": out["chunk"]["launch"]["blocks_per_sm"],
+         "waves": out["chunk"]["launch"]["waves"]},
+    ]
+
+
 def _slice_noise(W, steps, cfg, generator):
     """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
     G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
@@ -1789,7 +2046,7 @@ def main():
     phase_kernel1_sass()
     kernels = [phase_fused(ceilings, ptxas), phase_chunk(ceilings, ptxas)]
     phase_twins(ceilings, ptxas)
-    phase_global(ceilings, counters, ptxas)
+    global_walker, global_lp_gen = phase_global(ceilings, counters, ptxas)
     phase_chunk_wide(ceilings, ptxas)
     main_launches = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
@@ -1803,6 +2060,8 @@ def main():
     rescue_row = phase_gradient(ceilings, counters, ptxas, ensemble)
     phase_chees_d24()
     phase_blocked(counters)
+    prior_rows = phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen)
+    del global_walker
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -1820,6 +2079,8 @@ def main():
         "library_ms": None})
     # kernel 1 on the gradient samplers' rescue half-rounds (W/2)
     kernels.append(rescue_row)
+    # kernel 1 and kernel 2 with the flagship's named prior as a table
+    kernels.extend(prior_rows)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

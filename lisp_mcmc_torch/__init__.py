@@ -4,7 +4,8 @@ The port of ``lisp_mcmc_tpu`` (JAX on a TPU) to one NVIDIA H100.  Plain
 tensor code is PyTorch; the two TPU kernels of the main path (every zoo
 model, any number of terms), and the roofline's ceiling probe
 (``roofline.py``), are CUDA C++ written for Hopper (``csrc/``), built
-with ``nvcc`` at first use.
+with ``nvcc`` at first use.  A named prior (``PriorSpec``,
+``MVGaussian``) runs inside both kernels as a declared table.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -17,37 +18,53 @@ entry points run on the GPU unless ``device="cpu"`` is passed.
     lp, best = w.most_likely_step()
 """
 
-from . import control, diagnostics, models, nv, stats
+from . import control, diagnostics, models, nv, stats, utils
 from .control import clear_stop, estop, request_stop, stop_requested
 from .data import Dataset, clean_data, clean_data_error, create_walker_data
 from .device import resolve_device
-from .diagnostics import ess_from_history, rhat_from_history
+from .diagnostics import (convergence, convergence_per_dataset, ess_from_history,
+                          ess_per_param, mcse_per_param, metrics, rank_rhat_per_param,
+                          rhat_from_history, rhat_per_param, summary, tail_ess_per_param,
+                          trace_profile)
 from .expressions import (eval_expression, expression_credible_interval,
                           expression_hdi, expression_samples,
                           walker_with_expression)
-from .fit import Walker, mcmc_fit, walker_create
+from .fit import Walker, make_adam_sgdr_runner, mcmc_fit, unit_cube_view, walker_create
 from .io import file_specs, get_filename, read_file_data
 from .kernel import FitConfig, WalkerState, init_state, temperature_schedule
-from .likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
-                          log_likelihood_normal_weighted, log_likelihood_poisson)
-from .params import ParamSpec, normalize_params
-from .priors import (bound_penalty, combine_priors, constraint_penalty,
-                     log_prior_flat, make_bounds_prior, prior_bounds)
+from .likelihoods import (create_log_likelihood_function, log_factorial,
+                          log_likelihood_normal, log_likelihood_normal_cutoff,
+                          log_likelihood_normal_weighted, log_likelihood_poisson, log_normal,
+                          log_poisson, make_noise_scale_likelihood,
+                          make_student_t_likelihood, make_x_error_likelihood, pointwise_cdf,
+                          pointwise_log_likelihood)
+from .params import ParamSpec, map_params, normalize_params, reduce_params, scale_params
+from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_prior_spec,
+                     bound_penalty, combine_priors, constraint_penalty, log_prior_flat,
+                     make_bounds_prior, prior_bounds, resolve_prior_spec, unit_cube_wall)
 from .walker_set import WalkerSet
 
 __all__ = [
-    "control", "diagnostics", "models", "nv", "stats",
+    "control", "diagnostics", "models", "nv", "stats", "utils",
     "clear_stop", "estop", "request_stop", "stop_requested",
     "Dataset", "clean_data", "clean_data_error", "create_walker_data",
-    "resolve_device", "ess_from_history", "rhat_from_history",
+    "resolve_device", "ess_from_history", "rhat_from_history", "convergence",
+    "convergence_per_dataset", "ess_per_param", "mcse_per_param", "metrics",
+    "rank_rhat_per_param", "rhat_per_param", "summary", "tail_ess_per_param",
+    "trace_profile",
     "eval_expression", "expression_credible_interval", "expression_hdi",
     "expression_samples", "walker_with_expression",
-    "Walker", "mcmc_fit", "walker_create",
+    "Walker", "mcmc_fit", "walker_create", "unit_cube_view", "make_adam_sgdr_runner",
     "file_specs", "get_filename", "read_file_data",
     "FitConfig", "WalkerState", "init_state", "temperature_schedule",
     "log_likelihood_normal", "log_likelihood_normal_cutoff",
-    "log_likelihood_normal_weighted", "log_likelihood_poisson",
-    "ParamSpec", "normalize_params",
+    "log_likelihood_normal_weighted", "log_likelihood_poisson", "log_normal",
+    "log_poisson", "log_factorial", "make_student_t_likelihood",
+    "make_noise_scale_likelihood", "make_x_error_likelihood",
+    "create_log_likelihood_function", "pointwise_log_likelihood", "pointwise_cdf",
+    "ParamSpec", "normalize_params", "map_params", "scale_params", "reduce_params",
     "bound_penalty", "combine_priors", "constraint_penalty", "log_prior_flat",
-    "make_bounds_prior", "prior_bounds", "WalkerSet",
+    "make_bounds_prior", "prior_bounds", "Uniform", "Gaussian", "LogNormal",
+    "MVGaussian", "PriorSpec", "as_prior_spec", "resolve_prior_spec",
+    "unit_cube_wall", "WalkerSet",
 ]

@@ -5,9 +5,9 @@
 // step it takes the temperature (cosine anneal or override), draws z by
 // Box-Muller on the keyed counter hash, proposes x + L z with the lower-
 // triangular L, evaluates the fused posterior of every term (models.cuh)
-// plus the bounds table and the declared constraints, with a finite
-// floor, accepts by MH (or greedily), tracks its best point and adds the
-// accepted move to the moment sums.
+// plus the bounds table, the declared constraints and the declared
+// densities, with a finite floor, accepts by MH (or greedily), tracks its
+// best point and adds the accepted move to the moment sums.
 //
 // What bounds it on an H100: arithmetic, as in fused_posterior.cu, times
 // `chunk` steps: device memory is touched once per chunk (state in and
@@ -27,7 +27,8 @@
 //   to the output in device memory when it improves.  __launch_bounds__
 //   caps the registers at 64, so 1024 threads (32 warps) fit an SM, as in
 //   the fused kernel.
-// - L, the bounds table and the constraints are shared memory.  So is the
+// - L, the bounds table, the constraints and the densities are shared
+//   memory (a density table's size counts in the plan).  So is the
 //   data when every term fits one tile and all terms' columns, each at the
 //   tile's stride, fit RESIDENT_FLOATS, staged once for the whole chunk,
 //   unless staging each term tile by tile every step (one tile's shared
@@ -46,8 +47,8 @@
 // Every walker does the same arithmetic in the same order as the register
 // design this replaces compiled to (L z: row r's first two products as
 // fma(L[r][0], z[0], L[r][1] z[1]), then an FMA for each further c
-// ascending; each term's points in order; the bounds then the
-// constraints; the finite floor; the MH test; best tracking), so
+// ascending; each term's points in order; the bounds, the constraints,
+// then the densities; the finite floor; the MH test; best tracking), so
 // position, logprob, best point and accept count are bit for bit the
 // same, and do not depend on the block size; only the trace sums and the
 // moments are summed in another order.
@@ -85,6 +86,9 @@ struct ChunkArgs {
   Terms<float> terms;
   Bounds<float> bounds;
   Constraints<float> cons;
+  Densities<float> dens;
+  int dens_ints;         // didx entries
+  int dens_vals;         // dval entries
   float* pos_out;
   float* lp_out;
   float* best_out;
@@ -150,13 +154,14 @@ __device__ __forceinline__ float group_warp_sum(float (&v)[GROUP], int lane) {
 
 // Floats of dynamic shared memory for a block of B threads: L, the bounds
 // table (lo, hi, column), the constraints (lo/hi, then kind and columns),
-// the position and step rows, one moment row per warp, the data (resident,
-// or one tile of each column) and the per-warp trace partials.
-__host__ __device__ inline int chunk_smem_floats(int B, int d, int nb, int nc,
+// the densities (nd 4-byte values and ints), the position and step rows,
+// one moment row per warp, the data (resident, or one tile of each column)
+// and the per-warp trace partials.
+__host__ __device__ inline int chunk_smem_floats(int B, int d, int nb, int nc, int nd,
                                                  int resident, int data_floats) {
   const int nm = d + d * (d + 1) / 2;
   const int warps = B / 32;
-  return d * d + 3 * nb + 5 * nc + 2 * d * B + nm * warps +
+  return d * d + 3 * nb + 5 * nc + nd + 2 * d * B + nm * warps +
          (resident ? data_floats : MAX_COLS * TILE) + 3 * warps;
 }
 
@@ -175,7 +180,9 @@ chunk_rwm_kernel(const ChunkArgs a) {
   int* bcol = reinterpret_cast<int*>(bhi + nb);
   float* cval = reinterpret_cast<float*>(bcol + nb);
   int* cidx = reinterpret_cast<int*>(cval + 2 * nc);
-  float* spos = reinterpret_cast<float*>(cidx + 3 * nc);
+  float* dval = reinterpret_cast<float*>(cidx + 3 * nc);
+  int* didx = reinterpret_cast<int*>(dval + a.dens_vals);
+  float* spos = reinterpret_cast<float*>(didx + a.dens_ints);
   float* sstep = spos + d * B;
   float* wmom = sstep + d * B;
   float* data = wmom + nm * WARPS;
@@ -198,6 +205,8 @@ chunk_rwm_kernel(const ChunkArgs a) {
   }
   for (int e = tid; e < 2 * nc; e += B) cval[e] = a.cons.val[e];
   for (int e = tid; e < 3 * nc; e += B) cidx[e] = a.cons.idx[e];
+  for (int e = tid; e < a.dens_vals; e += B) dval[e] = a.dens.val[e];
+  for (int e = tid; e < a.dens_ints; e += B) didx[e] = a.dens.idx[e];
   for (int k = tid; k < nm * WARPS; k += B) wmom[k] = 0.0f;
   if (a.resident) {
     for (int i = 0, off = 0; i < a.terms.count; ++i) {
@@ -255,8 +264,8 @@ chunk_rwm_kernel(const ChunkArgs a) {
       step[r * B] = s;
     }
 
-    // posterior at the proposal: every term, then the bounds table, then
-    // the constraints
+    // posterior at the proposal: every term, then the bounds table, the
+    // constraints and the densities
     float lp_prop = 0.0f;
     for (int t = 0, off = 0; t < a.terms.count; ++t) {
       const Term<float>& tm = a.terms.t[t];
@@ -288,6 +297,7 @@ chunk_rwm_kernel(const ChunkArgs a) {
     float prior = 0.0f;
     for (int e = 0; e < nb; ++e) prior += bound_penalty(prop(bcol[e]), blo[e], bhi[e]);
     if (nc > 0) prior += constraint_total(nc, cidx, cval, prop);
+    if (a.dens.n > 0) prior += density_total(a.dens.n, didx, dval, prop);
     lp_prop = lp_prop + prior;
     if (!isfinite(lp_prop)) lp_prop = a.neg_floor;
 
@@ -411,8 +421,8 @@ cudaError_t residency(size_t bytes, int* per_sm) {
 // least (waves x resident threads per SM: the thread-slots the SMs hold
 // until the last wave ends), then the one with more resident threads,
 // then the first of resident 256, resident 128, staged 256, staged 128.
-cudaError_t chunk_plan(int d, int nb, int nc, int resident_ok, int data_floats, int W,
-                       Plan* plan) {
+cudaError_t chunk_plan(int d, int nb, int nc, int nd, int resident_ok, int data_floats,
+                       int W, Plan* plan) {
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -425,7 +435,7 @@ cudaError_t chunk_plan(int d, int nb, int nc, int resident_ok, int data_floats, 
   for (int resident = resident_ok; resident >= 0; --resident) {
     for (int B : sizes) {
       const size_t bytes =
-          sizeof(float) * chunk_smem_floats(B, d, nb, nc, resident, data_floats);
+          sizeof(float) * chunk_smem_floats(B, d, nb, nc, nd, resident, data_floats);
       if (bytes > static_cast<size_t>(optin)) continue;
       int per_sm = 0;
       err = B == 256 ? residency<256>(bytes, &per_sm) : residency<128>(bytes, &per_sm);
@@ -462,11 +472,12 @@ void data_layout(const Terms<float>& terms, int* resident, int* data_floats) {
 
 // The plan to launch lmt_chunk_rwm with, for these terms, tables and W on
 // the current card: out = (threads per block, blocks, blocks resident per
-// SM, SMs, dynamic shared memory bytes, data resident).  Planning leaves
+// SM, SMs, dynamic shared memory bytes, data resident); nd counts the
+// density table's ints and values together.  Planning leaves
 // each block size's shared-memory attribute at its last candidate's;
 // lmt_chunk_rwm sets it again.  Returns a cudaError_t.
-extern "C" int lmt_chunk_plan(int d, int n_terms, const int* meta, int nb, int nc, int W,
-                              int* out) {
+extern "C" int lmt_chunk_plan(int d, int n_terms, const int* meta, int nb, int nc, int nd,
+                              int W, int* out) {
   if (d < 1 || d > lmt::MAX_D || n_terms < 1 || n_terms > lmt::MAX_TERMS)
     return cudaErrorInvalidValue;
   const void* cols[lmt::MAX_TERMS * lmt::MAX_COLS] = {};
@@ -474,7 +485,7 @@ extern "C" int lmt_chunk_plan(int d, int n_terms, const int* meta, int nb, int n
   int resident = 0, data_floats = 0;
   lmt::data_layout(terms, &resident, &data_floats);
   lmt::Plan p{};
-  const cudaError_t err = lmt::chunk_plan(d, nb, nc, resident, data_floats, W, &p);
+  const cudaError_t err = lmt::chunk_plan(d, nb, nc, nd, resident, data_floats, W, &p);
   if (err != cudaSuccess) return err;
   out[0] = p.threads;
   out[1] = p.blocks;
@@ -486,8 +497,9 @@ extern "C" int lmt_chunk_plan(int d, int n_terms, const int* meta, int nb, int n
 }
 
 // d in 1..MAX_D.  meta and cols are host arrays of n_terms terms
-// (models.cuh: make_terms); bcol/blo/bhi the nb bounds entries and
-// cidx/cval the nc constraints on the device; threads, blocks, smem and
+// (models.cuh: make_terms); bcol/blo/bhi the nb bounds entries,
+// cidx/cval the nc constraints and didx/dval the nd densities (ndi ints,
+// ndv values) on the device; threads, blocks, smem and
 // resident are lmt_chunk_plan's plan for these terms, tables and W, which
 // also sized the partial buffers (checked against W and the shared-memory
 // layout here).  Returns the cudaError_t of the launch.
@@ -496,10 +508,11 @@ extern "C" int lmt_chunk_rwm(
     const float* pos, const float* lp, const float* best, const float* best_lp,
     const float* L, const int* seed, const int* bcol, const float* blo,
     const float* bhi, int nb, const int* cidx, const float* cval, int nc,
-    float* pos_out, float* lp_out, float* best_out,
-    float* best_lp_out, float* acc_out, float* msum_part, float* mouter_part,
-    float* trace_part, int W, int wb, int chunk, int anneal_step,
-    float temp_override, float ts, float phase_rate, float temp_amp,
+    const int* didx, const float* dval, int nd, int ndi, int ndv,
+    float* pos_out, float* lp_out, float* best_out, float* best_lp_out, float* acc_out,
+    float* msum_part, float* mouter_part, float* trace_part,
+    int W, int wb, int chunk, int anneal_step, float temp_override,
+    float ts, float phase_rate, float temp_amp,
     float neg_floor, int greedy, int threads, int blocks, int smem, int resident,
     void* stream) {
   if (d < 1 || d > lmt::MAX_D || n_terms < 1 || n_terms > lmt::MAX_TERMS)
@@ -510,6 +523,8 @@ extern "C" int lmt_chunk_rwm(
   a.terms = lmt::make_terms<float>(n_terms, meta, cols);
   a.bounds.col = bcol; a.bounds.lo = blo; a.bounds.hi = bhi; a.bounds.n = nb;
   a.cons.idx = cidx; a.cons.val = cval; a.cons.n = nc;
+  a.dens.idx = didx; a.dens.val = dval; a.dens.n = nd;
+  a.dens_ints = ndi; a.dens_vals = ndv;
   a.pos_out = pos_out; a.lp_out = lp_out; a.best_out = best_out;
   a.best_lp_out = best_lp_out; a.acc_out = acc_out;
   a.msum_part = msum_part; a.mouter_part = mouter_part; a.trace_part = trace_part;
@@ -523,9 +538,9 @@ extern "C" int lmt_chunk_rwm(
   // a plan for other terms, tables or W would overrun the partial buffers
   // or the shared memory
   if ((threads != 256 && threads != 128) || blocks != (W + threads - 1) / threads ||
-      resident < 0 || resident > may_reside ||
-      static_cast<size_t>(smem) !=
-          sizeof(float) * lmt::chunk_smem_floats(threads, d, nb, nc, resident, a.data_floats))
+      resident < 0 || resident > may_reside || nd < 0 || ndi < 0 || ndv < 0 ||
+      static_cast<size_t>(smem) != sizeof(float) * lmt::chunk_smem_floats(
+                                       threads, d, nb, nc, ndi + ndv, resident, a.data_floats))
     return cudaErrorInvalidValue;
   // the attribute is per kernel: another plan may have set it since
   cudaError_t err = threads == 256 ? lmt::residency<256>(smem, nullptr)

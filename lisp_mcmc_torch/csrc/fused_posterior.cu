@@ -4,12 +4,14 @@
 // (build_fused_posterior).  For each posterior term in turn, as the Pallas
 // kernel loops over its term_meta: the term's twin at every data point,
 // residual times inv_sigma and the likelihood's masked reduction; then the
-// bounds prior and the declared constraints of every term; then the
+// bounds prior, the declared constraints and the declared densities (a
+// named prior's Gaussian, LogNormal and quadratic-form terms) of every
+// term; then the
 // walker-independent constant (log-normalisation, or -sum lgamma(y+1)),
 // added last as (total + prior) + constant, the order in which the JAX
 // package adds it, so the float32 sum does not lose the digits that decide
-// an MH step.  Whatever part of a prior is neither a bounds table nor
-// declared constraints is added by the Python wrapper, in torch.
+// an MH step.  Whatever part of a prior is not a declared table is added
+// by the Python wrapper, in torch.
 //
 // What bounds it on an H100: arithmetic.  Per walker-point the flagship's
 // lorder_mixed_bg term costs ~15 FP operations and one IEEE division (a
@@ -123,6 +125,7 @@ template <typename T> struct FusedArgs {
   PackedTerm<T> t[MAX_TERMS];
   Bounds<T> bounds;
   Constraints<T> cons;
+  Densities<T> dens;
 };
 
 // ---- staging: cp.async of 16-byte chunks, one commit group per tile
@@ -349,6 +352,8 @@ fused_posterior_kernel(const __grid_constant__ FusedArgs<T> a) {
       prior += bound_penalty(rw[a.bounds.col[e]], a.bounds.lo[e], a.bounds.hi[e]);
     if (a.cons.n > 0)
       prior += constraint_total(a.cons.n, a.cons.idx, a.cons.val, [&](int c) { return rw[c]; });
+    if (a.dens.n > 0)
+      prior += density_total(a.dens.n, a.dens.idx, a.dens.val, [&](int c) { return rw[c]; });
     a.out[w[r]] = (total[r] + prior) + cst;
   }
 }
@@ -463,7 +468,8 @@ template <typename T>
 cudaError_t launch(const lmt::Plan& p, const void* pos, int W, int d, int n_terms,
                    const int* meta, const void* const* recs, const int* bcol,
                    const void* blo, const void* bhi, int nb, const int* cidx,
-                   const void* cval, int nc, const void* cst, void* out, cudaStream_t s) {
+                   const void* cval, int nc, const int* didx, const void* dval, int nd,
+                   const void* cst, void* out, cudaStream_t s) {
   using namespace lmt;
   FusedArgs<T> a{};
   a.pos = static_cast<const T*>(pos);
@@ -483,6 +489,7 @@ cudaError_t launch(const lmt::Plan& p, const void* pos, int W, int d, int n_term
   }
   a.bounds = Bounds<T>{bcol, static_cast<const T*>(blo), static_cast<const T*>(bhi), nb};
   a.cons = Constraints<T>{cidx, static_cast<const T*>(cval), nc};
+  a.dens = Densities<T>{didx, static_cast<const T*>(dval), nd};
   const void* k = kernel_for(sizeof(T) == 4 ? 0 : 1, p.R, p.twin_class);
   if (k == nullptr) return cudaErrorInvalidValue;
   void* args[] = {&a};
@@ -577,14 +584,16 @@ extern "C" int lmt_fused_plan(int dtype, int W, int n_terms, const int* meta, in
 
 // plan: the 10 values lmt_fused_plan gave for this dtype, W and terms.
 // recs: n_terms device pointers to the packed records; bcol, blo, bhi the
-// nb bounds entries and cidx, cval the nc declared constraints
-// (models.cuh: Constraints), cst the scalar constant (one value), all on
+// nb bounds entries, cidx, cval the nc declared constraints
+// (models.cuh: Constraints), didx, dval the nd declared densities
+// (models.cuh: Densities), cst the scalar constant (one value), all on
 // the device.  Returns the cudaError_t of the launch.
 extern "C" int lmt_fused_posterior(int dtype, const int* plan, const void* pos, int W,
                                    int d, int n_terms, const int* meta,
                                    const void* const* recs, const int* bcol,
                                    const void* blo, const void* bhi, int nb,
                                    const int* cidx, const void* cval, int nc,
+                                   const int* didx, const void* dval, int nd,
                                    const void* cst, void* out, void* stream) {
   lmt::Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7],
               plan[8], plan[9]};
@@ -600,9 +609,9 @@ extern "C" int lmt_fused_posterior(int dtype, const int* plan, const void* pos, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(p, pos, W, d, n_terms, meta, recs, bcol, blo, bhi, nb, cidx, cval,
-                         nc, cst, out, s);
+                         nc, didx, dval, nd, cst, out, s);
   if (dtype == 1)
     return launch<double>(p, pos, W, d, n_terms, meta, recs, bcol, blo, bhi, nb, cidx, cval,
-                          nc, cst, out, s);
+                          nc, didx, dval, nd, cst, out, s);
   return cudaErrorInvalidValue;
 }

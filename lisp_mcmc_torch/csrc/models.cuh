@@ -38,6 +38,8 @@ enum {
 enum { KIND_NORMAL = 0, KIND_NORMAL_CUTOFF = 1, KIND_POISSON = 2 };
 // Keep in step with loglik_kernel.CONSTRAINT_IDS.
 enum { CONSTRAINT_LE = 0, CONSTRAINT_DIFF_GE = 1, CONSTRAINT_RATIO_IN = 2 };
+// Keep in step with loglik_kernel.DENSITY_IDS.
+enum { DENSITY_GAUSS = 0, DENSITY_LOGN = 1, DENSITY_QUAD = 2 };
 
 constexpr int TILE = 512;      // data points per shared-memory tile
 constexpr int MAX_COLS = 5;    // x, y and up to three per-point constants
@@ -413,6 +415,69 @@ __device__ __forceinline__ T constraint_total(int n, const int* idx, const T* va
       ok = val[2 * e] < ratio && ratio < val[2 * e + 1];
     }
     total = add_rn(total, ok ? T(0) : T(-1e9));
+  }
+  return total;
+}
+
+// The declared densities of a named prior (loglik_kernel.declared_densities):
+// n entries, read in order.  Entry e's ints are (kind, k, k columns) and
+// its values, for a Gaussian or a LogNormal (k = 1), (mu, 1/sigma, c); for
+// a k-parameter quadratic form (mean[k], the k(k+1)/2 entries of M =
+// chol^-1 row by row, log_norm).  Both arrays may be in shared memory.
+template <typename T> struct Densities {
+  const int* idx;
+  const T* val;
+  int n;
+};
+
+template <typename T> __device__ __forceinline__ T smallest_normal();
+template <> __device__ __forceinline__ float smallest_normal<float>() { return 1.17549435e-38f; }
+template <> __device__ __forceinline__ double smallest_normal<double>() {
+  return 2.2250738585072014e-308;
+}
+
+// The sum of the entries' log densities, in order, every operation rounded
+// apart (mul_rn/add_rn/sub_rn: no FMA), as loglik_kernel.densities_plain
+// does: a Gaussian -0.5 z z + c with z = (x - mu) (1/sigma); a LogNormal
+// the same of lx = log(max(x, smallest normal)), minus lx (a NaN x stays
+// NaN); a quadratic form -0.5 |M (x - mean)|^2 + log_norm, row r of M
+// (x - mean) summed over c = 0..r.  p(col) reads the walker's value of a
+// column.
+template <typename T, typename P>
+__device__ __forceinline__ T density_total(int n, const int* idx, const T* val, P p) {
+  T total = T(0);
+  for (int e = 0, i = 0, v = 0; e < n; ++e) {
+    const int kind = idx[i];
+    const int k = idx[i + 1];
+    const int* col = idx + i + 2;
+    T term;
+    if (kind == DENSITY_QUAD) {
+      const T* mean = val + v;
+      const T* m = mean + k;
+      T q = T(0);
+      for (int r = 0, o = 0; r < k; ++r) {
+        T z = T(0);
+        for (int c = 0; c <= r; ++c, ++o) z = add_rn(z, mul_rn(m[o], sub_rn(p(col[c]), mean[c])));
+        q = add_rn(q, mul_rn(z, z));
+      }
+      term = add_rn(mul_rn(T(-0.5), q), m[k * (k + 1) / 2]);
+      v += k + k * (k + 1) / 2 + 1;
+    } else {
+      T x = p(col[0]);
+      T lx = T(0);
+      if (kind == DENSITY_LOGN) {
+        const T tiny = smallest_normal<T>();
+        lx = d_log(x < tiny ? tiny : x);
+        x = lx;
+      }
+      const T z = mul_rn(sub_rn(x, val[v]), val[v + 1]);
+      T t = mul_rn(mul_rn(T(-0.5), z), z);
+      if (kind == DENSITY_LOGN) t = sub_rn(t, lx);
+      term = add_rn(t, val[v + 2]);
+      v += 3;
+    }
+    total = add_rn(total, term);
+    i += 2 + k;
   }
   return total;
 }

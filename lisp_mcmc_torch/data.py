@@ -24,6 +24,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["Dataset", "clean_data", "clean_data_error", "create_walker_data"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -69,8 +71,11 @@ class Dataset:
         return self.y.device
 
     @classmethod
-    def create(cls, x, y, sigma=None, dtype=torch.float64, device="cpu"):
-        """Validate and move to ``device``."""
+    def create(cls, x, y, sigma=None, dtype=torch.float64, device=None):
+        """Validate and move to ``device``: ``None`` means the GPU
+        (``device.resolve_device``: it raises without one); pass
+        ``device="cpu"`` for the CPU."""
+        device = resolve_device(device)
         x = np.asarray(x, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64)
         if y.ndim != 1:

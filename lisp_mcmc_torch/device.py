@@ -171,17 +171,23 @@ def kernel_time_ms(fn, reps: int, match: str) -> float | None:
     ``match``, over ``reps`` warm calls of ``fn``, as ``torch.profiler``
     (CUPTI) records them: the kernel's own time, without the wrapper's
     host dispatch or any other kernel of the call.  None where the
-    profiler saw no such kernel."""
+    profiler saw no such kernel.  A session that records none of the
+    launches is taken again, up to three times: late in a long process
+    that has run other profiler sessions, CUPTI now and then delivers an
+    empty one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
-    us, count = sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
-    return us / 1e3 / count if count else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+        us, count = sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
+        if count:
+            return us / 1e3 / count
+    return None
 

@@ -13,11 +13,17 @@ L4 layer (mcmc-fitting.lisp):
   - ``walker-get`` / ``walker-modify`` (487-580): query and mutation verbs,
     and ``walker-with-exp`` (1052-1064);
   - ``mcmc-fit`` (1165-1176): create + adaptive steps;
+  - ``walker-sample-region`` (949-969), ``walker-force-take-step``
+    (1124-1129) and the other ``walker-get``/``walker-modify`` verbs;
 and the JAX package's adaptation groups (``group_ids``, ``n_groups``),
 ``tempered_steps`` (parallel tempering, ``auto_ladder``, ``swap_rates``,
 ``respace_ladder``), ``sampling_steps`` with every sampler (rwm, stretch,
-demc, slice, mala, hmc, chees) and ``chees_trajectory``.  Per-walker
-``aux`` data (``batched.py``) is not ported yet.
+demc, slice, mala, hmc, chees) and ``chees_trajectory``, ``optimize``
+(multi-start Adam with warm restarts, :func:`make_adam_sgdr_runner`),
+custom posteriors (``log_posterior=``, ``batched_log_posterior=``),
+named priors (a ``priors.PriorSpec`` or ``MVGaussian`` as ``log_prior``)
+and :func:`unit_cube_view`.  Per-walker ``aux`` data (``batched.py``) is
+not ported yet.
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -37,16 +43,17 @@ from . import control
 from .data import Dataset, clean_data, clean_data_error
 from .device import resolve_device
 from .kernel import (ENSEMBLE_KERNELS, FitConfig, _neg_floor, build_chunk_runner,
-                     init_state, resolve_accept_band, rung_betas)
+                     init_state, make_eval_vg, resolve_accept_band, rung_betas)
 from .likelihoods import log_likelihood_normal, resolve_likelihood
 from .ops.chunk_kernel import build_chunk_kernel, chunk_coverage
 from .ops.linalg import cholesky_clamped
 from .ops.loglik_kernel import (fused_posterior, kernel_coverage, posterior_rel_err,
                                 prepare_fused_terms)
 from .params import ParamSpec, normalize_params
-from .priors import log_prior_flat, resolve_prior
+from .priors import as_prior_spec, log_prior_flat, resolve_prior, unit_cube_wall
 
-__all__ = ["Walker", "walker_create", "mcmc_fit", "respace_ladder"]
+__all__ = ["Walker", "walker_create", "mcmc_fit", "respace_ladder", "unit_cube_view",
+           "make_adam_sgdr_runner", "history_block_columns"]
 
 
 def _force_list(item):
@@ -91,6 +98,65 @@ def _rank_normalize_host(pos: np.ndarray) -> np.ndarray:
     return ndtri((r - 0.375) / (t * w + 0.25)).reshape(t, w, d)
 
 
+def make_adam_sgdr_runner(vg, n_steps: int):
+    """Whitened Adam with cosine warm restarts, the ascent core of
+    :meth:`Walker.optimize` (JAX ``fit.make_adam_sgdr_runner``,
+    fit.py:87-128).
+
+    ``vg(pos, data) -> (values, grads)``, batched over walkers; returns
+    ``run(pos0, s, lr, data)``, which takes ``n_steps`` Adam steps of
+    every walker in coordinates whitened by ``s`` (a zero scale freezes
+    its coordinate), in cycles of ``min(n_steps, 200)`` steps: each cycle
+    starts from fresh moments and decays its rate to zero on a cosine
+    (SGDR), which reaches the bottom of narrow correlated valleys where one
+    long decay runs out of step.  One ``vg`` a step, a Python loop over
+    tensors; non-finite gradient entries count as 0.
+    """
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    cycle = min(n_steps, 200)
+
+    def run(pos0, s, lr, data):
+        pos = pos0
+        m = v = torch.zeros_like(pos0)
+        for i in range(n_steps):
+            ic = float(i % cycle)
+            if ic == 0:
+                m = v = torch.zeros_like(pos0)
+            _, g = vg(pos, data)
+            gz = torch.where(torch.isfinite(g), g, 0.0) * s
+            m = b1 * m + (1 - b1) * gz
+            v = b2 * v + (1 - b2) * gz * gz
+            mhat = m / (1 - b1 ** (ic + 1.0))
+            vhat = v / (1 - b2 ** (ic + 1.0))
+            lr_t = lr * 0.5 * (1.0 + math.cos(math.pi * ic / cycle))
+            pos = pos + lr_t * s * mhat / (torch.sqrt(vhat) + eps)
+        return pos
+
+    return run
+
+
+def history_block_columns(walker, width: int) -> list[np.ndarray]:
+    """Column-index arrays, one per adaptation group, for a history of
+    ``width`` walker columns (JAX ``fit.history_block_columns``,
+    fit.py:131-157): the history holds every walker, the evenly spaced
+    ``history_walkers`` subsample, or (no rows collected) the live
+    ensemble, and each maps group ids its own way."""
+    g = getattr(walker, "group_ids", None)
+    if g is None or getattr(walker, "n_groups", 1) <= 1:
+        return [np.arange(width)]
+    g = np.asarray(g)
+    if width != g.size:
+        retained = walker._history_walker_idx()
+        if retained is not None and width == len(retained):
+            g = g[_host(retained)]
+        else:
+            raise ValueError(
+                f"history width {width} matches neither the ensemble "
+                f"({g.size}) nor the retained walker subsample — "
+                "cannot map dataset blocks")
+    return [np.nonzero(g == s)[0] for s in range(int(walker.n_groups))]
+
+
 def _nonzero_scales(vec):
     """Per-parameter magnitudes with zeros replaced by a small derived
     scale (so no proposal coordinate is permanently stuck)."""
@@ -117,21 +183,37 @@ class Walker:
     ``most_likely_step``, ``most_likely_params``, ``median_params``,
     ``mean_params``, ``stddev_params``, ``acceptance``, ``steps``,
     ``log_likelihoods``, ``param_trace``, ``covariance_matrix``,
-    ``l_matrix_estimate``, ``with_expression``, ``swap_rates``.  Mutation
+    ``l_matrix_estimate``, ``unique_steps``, ``forward_steps``,
+    ``check_for_nonfinite``, ``diagnose_params``, ``with_expression``,
+    ``swap_rates``, ``summary``, ``metrics``, ``convergence``.  Mutation
     verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
-    ``burn_steps``, ``keep_steps``, ``delete``.
+    ``burn_steps``, ``keep_steps``, ``add_steps``, ``delete``, and
+    ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.
 
     ``group_ids`` (W,) and ``n_groups`` split the walkers into adaptation
     groups, each with its own L, moments and acceptance window.
+
+    A custom posterior replaces the terms' (JAX ``Walker``, fit.py:207-231):
+    ``batched_log_posterior(positions (W, d), data) -> (W,)`` wins when
+    given; else ``log_posterior(theta (d,), data) -> ()``, one walker's, is
+    evaluated over the batch by ``torch.func.vmap``.  ``data`` is
+    ``posterior_data``.  Autograd differentiates either (``optimize`` and
+    the gradient samplers).  A custom posterior never runs on the CUDA
+    kernels: ``posterior_impl="kernel"`` or ``"chunk_kernel"`` raises.
     """
 
     def __init__(self, terms: list[_Term], spec: ParamSpec, initial_vector, *,
                  n_walkers: int = 1, seed: int = 0, walker_jitter: float = 0.0,
                  config: FitConfig | None = None, dtype=None, device=None,
-                 aux=None, group_ids=None, n_groups: int = 1):
+                 aux=None, group_ids=None, n_groups: int = 1,
+                 log_posterior: Callable | None = None, posterior_data=None,
+                 batched_log_posterior: Callable | None = None):
         if aux is not None:
             raise NotImplementedError(
                 "per-walker aux data is not ported yet (it waits for batched.py)")
+        self._custom_log_post = log_posterior
+        self._custom_data = posterior_data
+        self._custom_batched = batched_log_posterior
         self.device = resolve_device(device)
         self.terms = terms
         self.spec = spec
@@ -189,12 +271,34 @@ class Walker:
 
     # ------------------------------------------------------------------ build
 
+    @property
+    def _custom(self) -> bool:
+        """Whether a custom posterior replaces the terms'."""
+        return self._custom_batched is not None or self._custom_log_post is not None
+
+    def _posterior_data(self):
+        """The data a custom posterior is given (``posterior_data``), or
+        the terms' datasets."""
+        if self._custom_data is not None:
+            return self._custom_data
+        return tuple(t.dataset for t in self.terms)
+
     def _build_log_posterior(self):
         """Batched posterior ``positions (W, d) -> (W,)``, plain PyTorch.
 
         Likelihoods see ``(W, 1)`` parameter columns (so the model gives
-        ``(W, P)``); priors see ``(W,)`` columns.
+        ``(W, P)``); priors see ``(W,)`` columns.  A custom posterior
+        takes the terms' place: the batched one as it is, the per-walker
+        one under ``torch.func.vmap``.
         """
+        data = self._posterior_data()
+        if self._custom_batched is not None:
+            batched = self._custom_batched
+            return lambda positions: batched(positions, data)
+        if self._custom_log_post is not None:
+            one = self._custom_log_post
+            vmapped = torch.func.vmap(lambda theta: one(theta, data))
+            return lambda positions: vmapped(positions)
         terms, spec = self.terms, self.spec
 
         def log_post(positions):
@@ -235,6 +339,9 @@ class Walker:
         impl = self.config.posterior_impl
         if impl == "plain":
             return self._log_post
+        if self._custom:
+            self._refuse_custom(impl)
+            return self._log_post
         reason = kernel_coverage(self.terms, self.spec)
         if impl == "auto" and (reason is not None or self.device.type != "cuda"):
             return self._log_post
@@ -242,6 +349,14 @@ class Walker:
             raise ValueError(f"posterior_impl={impl!r}: the fit is outside "
                              f"the fused kernel's coverage: {reason}")
         return self._fused_posterior_probed(impl)
+
+    def _refuse_custom(self, impl: str):
+        """A custom posterior is plain PyTorch: a kernel cannot run it."""
+        if impl in ("kernel", "chunk_kernel"):
+            raise ValueError(
+                f"posterior_impl={impl!r}: this walker has a custom posterior "
+                "(log_posterior= or batched_log_posterior=), which the CUDA "
+                "kernels cannot evaluate; use posterior_impl='auto' or 'plain'")
 
     def _fused_posterior_probed(self, impl_name: str):
         """Build the fused posterior, verified against the plain one.
@@ -280,7 +395,9 @@ class Walker:
                      None if self.group_ids is None else self.group_ids.tobytes())
         if cache_key not in self._runner_cache:
             chunk = None
-            if cfg.posterior_impl == "chunk_kernel" and not with_history:
+            if self._custom:
+                self._refuse_custom(cfg.posterior_impl)
+            elif cfg.posterior_impl == "chunk_kernel" and not with_history:
                 # Non-history chunks run as one kernel launch each; history
                 # chunks keep the per-step path.  The probe gates it too.
                 reason = chunk_coverage(self.terms, self.spec, cfg,
@@ -579,6 +696,109 @@ class Walker:
                                          generator=self.generator)
                 self._record_chunk(self._stage_history(out))
 
+    def sample_region(self, initial_scale: float = 1e-3, n: int = 3000):
+        """Greedy proposal tuner (``walker-sample-region``, 949-969).
+
+        Greedy steps (no temperature, adaptation off) from L =
+        ``initial_scale`` diag(best params), in 50-step chunks: L x 0.25
+        when a chunk's acceptance is at most 0.02, x 1.7 above 0.08
+        (967-968).  The chunks' acceptances go to ``tuner_accept_log``,
+        not to the adaptive run's logs.
+        """
+        control.clear_stop()
+        best = _nonzero_scales(_host(self.best_params_vector()))
+        self._set_l_matrix(initial_scale * np.diag(best))
+        prev_config = self.config
+        self.config = dataclasses.replace(self.config, chunk_size=50)
+        try:
+            self._sample_region_loop(n)
+        finally:
+            self.config = prev_config
+
+    def _sample_region_loop(self, n: int):
+        runner = self._runner(greedy=True, with_history=False)
+        chunks = max(1, math.ceil(n / self.config.chunk_size))
+        self.tuner_accept_log: list[float] = []
+        for _ in range(chunks):
+            if control.stop_requested():
+                break
+            state, out = runner(self.state, False, False, True, generator=self.generator)
+            acc = float(out["accept_rate"])
+            scale = 0.25 if acc <= 0.02 else (1.7 if acc > 0.08 else 1.0)
+            self.state = dataclasses.replace(state, l_matrix=state.l_matrix * scale)
+            self.tuner_accept_log.append(acc)
+
+    def force_step(self):
+        """Re-evaluate the posterior at the current positions
+        (``walker-force-take-step``, 1124-1129; after a data swap)."""
+        self.state = dataclasses.replace(self.state,
+                                         logprob=self._eval_batch(self.state.position))
+
+    def swap_data(self, datasets):
+        """Replace the datasets term by term and re-evaluate in place; the
+        best points restart under the new posterior.  The kernel caches
+        (kernel 1's packed data among them) are dropped, so the next
+        chunk builds them on the new data."""
+        if self._custom:
+            raise ValueError(
+                "swap_data: this walker uses a custom posterior that closes "
+                "over its data; recreate the fit with the new data instead")
+        if len(datasets) != len(self.terms):
+            raise ValueError("swap_data: dataset count must match term count")
+        self.terms = [dataclasses.replace(t, dataset=d) for t, d in zip(self.terms, datasets)]
+        self._log_post = self._build_log_posterior()
+        self._runner_cache.clear()
+        self.force_step()
+        self.state = dataclasses.replace(self.state, best_position=self.state.position,
+                                         best_logprob=self.state.logprob)
+
+    def optimize(self, n_steps: int = 500, learning_rate: float = 0.05, rounds: int = 1):
+        """Multi-start gradient ascent on the log posterior (JAX
+        ``Walker.optimize``, fit.py:1275-1330).
+
+        Every walker runs :func:`make_adam_sgdr_runner` in coordinates
+        whitened by the ensemble's median |position| per parameter, so one
+        ``learning_rate`` serves parameters of very different magnitudes.
+        ``rounds`` reruns it with the scales refit to the improved
+        ensemble.  A walker moves only where its finite endpoint improved
+        its log posterior, so the ensemble never degrades; the best points
+        follow.  L and the moments are untouched.  Values and gradients
+        come from autograd through the plain posterior; the endpoints'
+        values from the value-only posterior (kernel 1 on CUDA).
+        """
+        if n_steps <= 0:
+            raise ValueError(f"n_steps must be positive, got {n_steps}")
+        if rounds <= 0:
+            raise ValueError(f"rounds must be positive, got {rounds}")
+        for _ in range(rounds):
+            if control.stop_requested():
+                break
+            self._optimize_round(n_steps, learning_rate)
+
+    def _optimize_round(self, n_steps: int, learning_rate: float):
+        st = self.state
+        s = torch.as_tensor(_nonzero_scales(np.median(np.abs(_host(st.position)), axis=0)),
+                            dtype=self.dtype, device=self.device)
+        key = ("optimize", int(n_steps))
+        fn = self._runner_cache.get(key)
+        if fn is None:
+            eval_vg = make_eval_vg(self._log_post)
+            fn = make_adam_sgdr_runner(lambda pos, data: eval_vg(pos)[:2], n_steps)
+            self._runner_cache[key] = fn
+        new_pos = fn(st.position, s, float(learning_rate), self._posterior_data())
+        new_pos = torch.where(torch.isfinite(new_pos).all(dim=1)[:, None], new_pos,
+                              st.position)
+        new_lp = self._batched_posterior()(new_pos)
+        new_lp = torch.where(torch.isfinite(new_lp), new_lp, _neg_floor(new_lp.dtype))
+        improved = new_lp > st.logprob
+        position = torch.where(improved[:, None], new_pos, st.position)
+        logprob = torch.where(improved, new_lp, st.logprob)
+        better = logprob > st.best_logprob
+        self.state = dataclasses.replace(
+            st, position=position, logprob=logprob,
+            best_position=torch.where(better[:, None], position, st.best_position),
+            best_logprob=torch.where(better, logprob, st.best_logprob))
+
     def tempered_steps(self, n: int, rungs: int = 8, t_max: float | None = None,
                        collect_history: bool = False, betas=None,
                        auto_ladder: bool = False):
@@ -719,6 +939,56 @@ class Walker:
         pos, lp = self._history(take)
         return pos.reshape(-1, self.ndim), lp.reshape(-1)
 
+    def unique_steps(self, take: int | None = None, walker: int = 0):
+        """One walker's steps without consecutive repeats (``:unique-steps``, 492)."""
+        pos, lp = self._history(take)
+        p, l = pos[:, walker], lp[:, walker]
+        keep = np.ones(len(l), dtype=bool)
+        keep[1:] = l[1:] != l[:-1]
+        return p[keep]
+
+    def forward_steps(self, take: int | None = None, walker: int = 0):
+        """One walker's steps that raised its posterior (``:forward-steps``, 497-502)."""
+        pos, lp = self._history(take)
+        p, l = pos[:, walker], lp[:, walker]
+        keep = np.zeros(len(l), dtype=bool)
+        keep[1:] = l[1:] > l[:-1]
+        keep[0] = True
+        return p[keep]
+
+    def check_for_nonfinite(self, take: int | None = None):
+        """The history columns holding a non-finite position or posterior
+        (``walker-check-for-complex-walks``, 483-485), or None."""
+        pos, lp = self._history(take)
+        bad = np.flatnonzero(~np.isfinite(pos).all(axis=(0, 2)) | ~np.isfinite(lp).all(axis=0))
+        return bad.tolist() if bad.size else None
+
+    def diagnose_params(self, params, aux_index: int = 0):
+        """The posterior at given params (``walker-diagnose-params``,
+        1200-1204).  ``aux_index`` picks a walker's aux data, which waits
+        for ``batched.py``: without aux it is unused."""
+        vec = self.spec.flatten(params, dtype=self.dtype, device=self.device)
+        return float(self._log_post(vec[None])[0])
+
+    def summary(self, take: int | None = None) -> str:
+        """Human-readable fit report (``diagnostics.summary``)."""
+        from .diagnostics import summary
+
+        return summary(self, take)
+
+    def metrics(self, take: int | None = None,
+                elapsed_seconds: float | None = None) -> dict:
+        """Structured metrics snapshot (``diagnostics.metrics``)."""
+        from .diagnostics import metrics
+
+        return metrics(self, take, elapsed_seconds)
+
+    def convergence(self, take: int | None = None, **kwargs) -> dict:
+        """Vehtari-2021 convergence verdict (``diagnostics.convergence``)."""
+        from .diagnostics import convergence
+
+        return convergence(self, take, **kwargs)
+
     def best_params_vector(self):
         """Flat (d,) vector of the global best step's parameters."""
         return self.state.best_position[int(torch.argmax(self.state.best_logprob))]
@@ -831,6 +1101,28 @@ class Walker:
             logprob=self.state.best_logprob[w].expand(W).clone())
         self.reset()
 
+    def add_steps(self, positions, logprobs):
+        """Append outside history (``:add-walks``, 556-565): ``(T, W, d)``
+        positions and ``(T, W)`` logprobs, or one walker's ``(T, d)`` and
+        ``(T,)`` given to every walker.  Each walker's best point is
+        refreshed from its own column's maximum, never a global one."""
+        positions = np.asarray(positions)
+        logprobs = np.asarray(logprobs)
+        if positions.ndim == 2:
+            positions = np.repeat(positions[:, None], self.n_walkers, axis=1)
+            logprobs = np.repeat(logprobs[:, None], self.n_walkers, axis=1)
+        self._hist_positions.append(positions)
+        self._hist_logprobs.append(logprobs)
+        st = self.state
+        col_arg = logprobs.argmax(axis=0)
+        kw = dict(dtype=self.dtype, device=self.device)
+        col_best = torch.as_tensor(logprobs.max(axis=0), **kw)
+        cand = torch.as_tensor(positions[col_arg, np.arange(positions.shape[1])], **kw)
+        better = col_best > st.best_logprob
+        self.state = dataclasses.replace(
+            st, best_position=torch.where(better[:, None], cand, st.best_position),
+            best_logprob=torch.where(better, col_best, st.best_logprob))
+
     def delete(self):
         """Free everything (``:delete``, 579-580)."""
         self.reset()
@@ -884,6 +1176,54 @@ def respace_ladder(betas, pair_rates, floor: float = 0.05) -> np.ndarray:
 # ------------------------------------------------------------------ factories
 
 
+def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
+    """A u-space view of a fit, on which the declared prior is the unit
+    cube (JAX ``fit.unit_cube_view``, fit.py:1608-1683).
+
+    Every parameter is reparameterised through its prior's inverse CDF,
+    ``theta = F^-1(u)``, so the declared prior is the Lebesgue measure on
+    ``(0, 1)^d``.  The view's posterior is batched, built from the base
+    walker's plain batched posterior (no vmap):
+
+        ``logpost_u(u) = logpost(F^-1(u)) - installed(F^-1(u)) + wall(u)``
+
+    ``installed`` the density term the prior adds (so ``exp(logpost_u) du
+    = L(theta) pi(theta) dtheta`` inside the cube), ``wall`` the unit-rate
+    exterior penalty (``priors.unit_cube_wall``).  The u-ensemble starts
+    at the CDF image of the walker's ensemble, clamped off the faces by
+    the type's eps.  The view shares the walker's datasets, config (on
+    the plain path, as every custom posterior), dtype, device and groups;
+    stepping it never touches the walker.  It carries ``_unit_cube_spec``
+    and ``_theta_of_u`` (``(W, d)`` u to theta).
+    """
+    spec = as_prior_spec(prior_spec)
+    keys = walker.spec.keys
+    missing = [k for k in keys if k not in spec]
+    if missing:
+        raise ValueError(f"unit_cube_view: prior spec missing {missing}")
+    base = walker._log_post
+
+    def theta_of_u(u):
+        return spec.transform(u, keys)
+
+    def batched_u(u, data=None):
+        th = theta_of_u(u)
+        return base(th) + (-spec.installed_vec(th, keys) + unit_cube_wall(u))
+
+    eps = 1e-12 if walker.dtype == torch.float64 else 1e-6
+    u0 = np.clip(_host(spec.inverse(walker.state.position, keys)).astype(np.float64),
+                 eps, 1.0 - eps)
+    uw = Walker([], walker.spec, u0, seed=seed,
+                config=dataclasses.replace(walker.config, posterior_impl="plain"),
+                dtype=walker.dtype, device=walker.device, group_ids=walker.group_ids,
+                n_groups=walker.n_groups, batched_log_posterior=batched_u,
+                posterior_data=walker._posterior_data())
+    uw._unit_cube_spec = spec
+    uw._theta_of_u = theta_of_u
+    return uw
+
+
+
 def walker_create(*, function, data, params, data_error=None, log_likelihood=None,
                   log_prior=None, n_walkers: int = 1, seed: int = 0,
                   walker_jitter: float = 0.0, config: FitConfig | None = None,
@@ -894,8 +1234,10 @@ def walker_create(*, function, data, params, data_error=None, log_likelihood=Non
     multi-dataset fits.  ``data``: ``(x, y)`` or a list of such pairs.
     ``data_error``: scalar, per-dataset scalars, or per-point arrays.
     ``log_likelihood`` / ``log_prior``: callables or per-dataset lists;
-    data-dependent factories are resolved once (837-845).  ``dtype``
-    defaults to float32; ``device=None`` means the GPU.
+    data-dependent factories are resolved once (837-845).  A
+    ``priors.PriorSpec`` or ``MVGaussian`` is taken anywhere a prior is,
+    as its ``as_log_prior()``.  ``dtype`` defaults to float32;
+    ``device=None`` means the GPU.
     """
     device = resolve_device(device)
     dtype = dtype or torch.float32
@@ -906,10 +1248,13 @@ def walker_create(*, function, data, params, data_error=None, log_likelihood=Non
         likelihoods = [ll or log_likelihood_normal for ll in log_likelihood]
     else:
         likelihoods = [log_likelihood or log_likelihood_normal] * len(functions)
+    def coerce(lp):
+        return lp.as_log_prior() if hasattr(lp, "as_log_prior") else lp
+
     if isinstance(log_prior, (list, tuple)):
-        priors = [lp or log_prior_flat for lp in log_prior]
+        priors = [coerce(lp) or log_prior_flat for lp in log_prior]
     else:
-        priors = [log_prior or log_prior_flat] * len(functions)
+        priors = [coerce(log_prior) or log_prior_flat] * len(functions)
     if not (len(functions) == len(cleaned) == len(likelihoods) == len(priors)):
         raise ValueError("walker_create: function/data/likelihood/prior counts must match")
 

@@ -3,16 +3,17 @@
 Port of ``lisp_mcmc_tpu/ops/chunk_pallas.py``.  The CUDA kernel
 (``csrc/chunk_rwm.cu``) keeps each walker's state on the chip across the
 chunk: proposal draw (keyed counter hash + Box-Muller), the fused
-posterior of every term (``csrc/models.cuh``), the bounds table and the
-declared constraints, MH accept, best tracking and the accepted-move
+posterior of every term (``csrc/models.cuh``), the bounds table, the
+declared constraints and the declared densities, MH accept, best tracking and the accepted-move
 moments.  Adaptation and the trace contract stay with the chunk runner
 (``kernel.py``), which reads the dict this returns.
 
 Scope (:func:`chunk_coverage` names what is outside it): ungrouped,
 untempered rwm, float32, the fused kernel's coverage
-(``loglik_kernel.kernel_coverage``), priors that are a bounds table,
-declared constraints (``priors.declared_constraints``) or both (a torch
-closure cannot run inside a 200-step launch), a walker count with a
+(``loglik_kernel.kernel_coverage``), priors that are declared tables: a
+bounds table, declared constraints (``priors.declared_constraints``),
+both, or a named prior (``priors.PriorSpec``, ``priors.MVGaussian``; a
+torch closure cannot run inside a 200-step launch), a walker count with a
 128-multiple block, and d <= :data:`MAX_D`.  One kernel serves every d:
 the walker's position and step are rows of shared memory, and the block
 size (256 or 128 threads) follows from d, the shared memory and the
@@ -42,7 +43,7 @@ import torch
 from ..device import check_launch, load_library
 from .loglik_kernel import (FusedPosterior, fused_posterior_plain, kernel_coverage,
                             pick_block, posterior_raw_plain, posterior_rel_err,
-                            prepare_fused_terms, split_prior)
+                            prepare_fused_terms, split_prior, table_floats, table_ints)
 
 __all__ = ["ChunkKernel", "build_chunk_kernel", "chunk_bytes", "chunk_census",
            "chunk_coverage", "chunk_diff", "chunk_plan", "chunk_rwm", "chunk_rwm_plain", "MAX_D",
@@ -143,10 +144,11 @@ def chunk_coverage(terms, spec, config, n_walkers: int, dtype,
         if rest is not None:
             closure = getattr(t.prior, "_extra", None) or t.prior
             name = getattr(closure, "__name__", repr(closure))
-            return (f"term {i}: prior {name!r} is not a bounds table alone or "
-                    "with declared constraints (priors.declared_constraints); "
-                    "the chunk kernel evaluates no torch code inside its "
-                    "200-step launch")
+            return (f"term {i}: prior {name!r} is not a declared table (a "
+                    "bounds table alone or with declared constraints, "
+                    "priors.declared_constraints, or a named prior, "
+                    "priors.PriorSpec / MVGaussian); the chunk kernel "
+                    "evaluates no torch code inside its 200-step launch")
     return None
 
 
@@ -257,9 +259,10 @@ def chunk_rwm_plain(ck: ChunkKernel, position, logprob, best_position,
 
 _CHUNK_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-_PLAN_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def chunk_plan(ck: ChunkKernel, W: int) -> dict:
@@ -280,7 +283,8 @@ def chunk_plan(ck: ChunkKernel, W: int) -> dict:
     fn.argtypes, fn.restype = _PLAN_ARGTYPES, ctypes.c_int
     out = (ctypes.c_int * 6)()
     code = fn(ck.d, len(post.terms), ctypes.addressof(post.meta), len(post.bounds),
-              len(post.constraints), int(W), ctypes.addressof(out))
+              len(post.constraints), post.didx.numel() + post.dval.numel(), int(W),
+              ctypes.addressof(out))
     check_launch(lib, code, "chunk_plan")
     plan = dict(zip(("threads", "blocks", "blocks_per_sm", "sms", "smem_bytes",
                      "resident"), out))
@@ -335,6 +339,8 @@ def _launch_chunk(ck: ChunkKernel, position, logprob, best_position,
               L.data_ptr(), seed.data_ptr(), post.bcol.data_ptr(),
               post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
               post.cidx.data_ptr(), post.cval.data_ptr(), len(post.constraints),
+              post.didx.data_ptr(), post.dval.data_ptr(), len(post.densities),
+              post.didx.numel(), post.dval.numel(),
               pos_out.data_ptr(), lp_out.data_ptr(), best_out.data_ptr(),
               best_lp_out.data_ptr(), acc_out.data_ptr(), msum_p.data_ptr(),
               mouter_p.data_ptr(), trace_p.data_ptr(),
@@ -482,7 +488,8 @@ def chunk_census(census: dict, d: int) -> dict:
 def chunk_bytes(post: FusedPosterior, W: int, chunk: int) -> int:
     """Bytes one chunk launch must move: position, logprob, best point and
     best logprob in and out, the accept counts, every term's data columns,
-    L and the (chunk, 3) trace, all float32."""
+    L, the prior's tables and the (chunk, 3) trace, all 4-byte values."""
     d = post.d
     data = sum(len(t.cols) * t.n for t in post.terms)
-    return 4 * (W * (2 * d + 2) * 2 + W + data + d * d + chunk * 3)
+    return 4 * (W * (2 * d + 2) * 2 + W + data + d * d + chunk * 3
+                + table_floats(post) + table_ints(post))

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["cholesky_clamped", "sample_covariance", "moments_covariance",
-           "haario_scale"]
+           "haario_scale", "diagonal_covariance", "covariant_sample"]
 
 
 def cholesky_clamped(a):
@@ -84,3 +84,20 @@ def moments_covariance(m_sum, m_outer, m_count):
 def haario_scale(d: int) -> float:
     """The ``2.38^2 / d`` factor (mcmc-fitting.lisp:890), applied to L."""
     return 2.38**2 / d
+
+
+def diagonal_covariance(values):
+    """``diagonal-covariance`` (mcmc-fitting.lisp:710-727): ``(..., d)``
+    values on the diagonal of ``(..., d, d)`` zeros, the reference's
+    proposal L of per-parameter scales."""
+    return torch.diag_embed(torch.as_tensor(values))
+
+
+def covariant_sample(generator, mean, l_matrix):
+    """Proposal draw ``mean + L z`` (``get-covariant-sample``, 679-700),
+    z standard normal from the ``torch.Generator``.  ``mean``: (..., d);
+    ``l_matrix``: (d, d) shared across the batch or (..., d, d) per row."""
+    z = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=mean.device)
+    if l_matrix.ndim == 2:
+        return mean + torch.einsum("ij,...j->...i", l_matrix, z)
+    return mean + torch.einsum("...ij,...j->...i", l_matrix, z)

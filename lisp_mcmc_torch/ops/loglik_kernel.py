@@ -3,8 +3,9 @@
 Port of ``lisp_mcmc_tpu/ops/loglik_pallas.py``.  The CUDA kernel
 (``csrc/fused_posterior.cu``) loops over the posterior's terms as the
 Pallas kernel does: each term's model at every data point, its
-likelihood's reduction, then the bounds prior and the declared
-constraints, then the walker-independent constant, all in registers,
+likelihood's reduction, then the bounds prior, the declared
+constraints and the declared densities, then the walker-independent
+constant, all in registers,
 with each term's points staged in shared memory as packed records
 (:func:`pack_records`); nothing of size W x N reaches device memory.
 Each thread evaluates R walkers and S threads share one walker's points;
@@ -17,12 +18,15 @@ a Python callable, so:
 - a term's model runs as its CUDA twin (``csrc/models.cuh``): any zoo
   model (``models.DEVICE_MODELS``), or one declared with
   ``models.renamed``;
-- a prior is split in three.  Its bounds table (``make_bounds_prior``'s
-  ``._bounds``) and its declared constraints (an ``extra`` made by
-  ``priors.declared_constraints``, as the NV prior's) are evaluated in the
-  kernel; whatever remains (an undeclared ``extra``, or a prior that is
-  not a table at all) is evaluated per walker by the prior's own torch
-  code on the ``(W,)`` parameter columns and added to the kernel's output.
+- a prior is split in four.  Its bounds table (``make_bounds_prior``'s
+  ``._bounds``, or the walls of a named prior), its declared constraints
+  (an ``extra`` made by ``priors.declared_constraints``, as the NV
+  prior's) and its declared densities (a ``PriorSpec``'s Gaussian and
+  LogNormal components, an ``MVGaussian``'s quadratic form:
+  :func:`declared_densities`) are evaluated in the kernel; whatever
+  remains (an undeclared ``extra``, or a prior that is not a table at
+  all) is evaluated per walker by the prior's own torch code on the
+  ``(W,)`` parameter columns and added to the kernel's output.
 
 :func:`kernel_coverage` refuses only what the Pallas kernel refuses too (a
 custom likelihood, multi-column x) and a model with no twin;
@@ -41,29 +45,34 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from collections.abc import Mapping
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..device import build_log, check_launch, load_library, ptxas_table
 from ..likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
                            log_likelihood_poisson)
 from ..models.zoo import MAX_POLY, device_model, model_coverage
-from ..priors import bound_penalty, constraint_total, log_prior_flat, prior_bounds
+from ..priors import (Gaussian, MVGaussian, PriorSpec, Uniform, bound_penalty,
+                      constraint_total, log_prior_flat, prior_bounds)
 
 __all__ = ["FusedPosterior", "FusedTerm", "MAX_TERMS", "OP_CLASSES",
            "census_totals", "class_rates", "constraints_plain",
+           "declared_densities", "density_census", "densities_plain",
            "fusable_terms", "fused_bytes", "fused_census", "fused_kernel_entry",
            "fused_plan", "fused_posterior", "fused_posterior_plain",
            "kernel_coverage", "model_census", "op_census", "opmix_bound_ms",
            "pack_records", "pick_block", "posterior_census",
            "posterior_raw_plain", "posterior_rel_err", "prepare_fused_terms",
-           "split_prior", "twin_class"]
+           "split_prior", "table_floats", "table_ints", "twin_class"]
 
 _CUTOFF_DEFAULT = -5000.0
 KIND_IDS = {"normal": 0, "normal_cutoff": 1, "poisson": 2}
 CONSTRAINT_IDS = {"le": 0, "diff_ge": 1, "ratio_in": 2}  # csrc/models.cuh
+DENSITY_IDS = {"gauss": 0, "logn": 1, "quad": 2}           # csrc/models.cuh
 # Limits of csrc/models.cuh: MAX_TERMS terms a launch, MAX_NP twin
 # parameters, MAX_COLS data columns; a term's row of the host metadata is
 # (model, kind, n, np, column of each of MAX_NP parameters), its META_STRIDE.
@@ -133,25 +142,72 @@ class _Penalties(Mapping):
         return len(self._get())
 
 
+def declared_densities(spec, keys):
+    """A named prior as the kernels' tables: ``(bounds entries, density
+    entries)``, or None when it names a parameter the fit lacks.
+
+    Per component of a ``PriorSpec``, in declaration order: a Uniform is a
+    bounds entry ``(column, low, high)``; a Gaussian or a LogNormal is a
+    density entry ``("gauss" | "logn", (column,), (mu, 1 / sigma, c))``
+    with ``c = -log sigma - log(2 pi) / 2 - log mass``, whose value is
+    ``-z^2 / 2 + c``, ``z = (x - mu) / sigma`` (the LogNormal's x its
+    ``log max(x, tiny)``, and ``-log x`` added), plus a bounds entry where
+    it is truncated (an infinite edge kept infinite).  An ``MVGaussian``
+    over k parameters is one entry ``("quad", columns, (mean..., M...,
+    log_norm))``, M the k(k+1)/2 rows of the inverse of the covariance's
+    Cholesky factor, lower triangle row by row; its value is ``-|M (x -
+    mean)|^2 / 2 + log_norm``.
+    """
+    if isinstance(spec, MVGaussian):
+        if any(k not in keys for k in spec.keys_order):
+            return None
+        inv = np.linalg.solve(spec.chol, np.eye(len(spec.keys_order)))
+        packed = [float(inv[r, c]) for r in range(inv.shape[0]) for c in range(r + 1)]
+        return (), (("quad", tuple(keys.index(k) for k in spec.keys_order),
+                     (*(float(v) for v in spec.mean), *packed, float(spec.log_norm))),)
+    bounds, dens = [], []
+    for name, dist in spec.items():
+        if name not in keys:
+            return None
+        col = keys.index(name)
+        if isinstance(dist, Uniform):
+            bounds.append((col, float(dist.low), float(dist.high)))
+            continue
+        if dist.truncated:
+            bounds.append((col, float(dist.low), float(dist.high)))
+        c = -math.log(dist.sigma) - 0.5 * math.log(2.0 * math.pi) - dist._log_mass
+        kind = "gauss" if isinstance(dist, Gaussian) else "logn"
+        dens.append((kind, (col,), (float(dist.mu), 1.0 / float(dist.sigma), c)))
+    return tuple(bounds), tuple(dens)
+
+
 def split_prior(prior, keys):
-    """``(bounds entries, rest, constraints)`` of a prior on a fit with
-    these ``keys``.
+    """``(bounds entries, rest, constraints, densities)`` of a prior on a
+    fit with these ``keys``.
 
     The entries ``((column, lo, hi), ...)`` are the bounds table the
     kernels evaluate; the constraints ``((Constraint, column a, column
     b), ...)`` are the declared ``extra``'s entries
     (``priors.declared_constraints``), which the kernels evaluate after
-    the table; ``rest(params, dataset)`` is what remains, for torch to
-    evaluate beside them (None when nothing does): an undeclared ``extra``
-    of ``make_bounds_prior`` (given the table's penalties, as the prior
-    gives them), or the whole of a prior that is not a table.  None when
-    the table or a constraint names a parameter the fit lacks.
+    the table; the densities are a named prior's (``._prior_spec``, a
+    ``PriorSpec`` that is not all Uniform or an ``MVGaussian``), as
+    :func:`declared_densities` lays them out, which the kernels evaluate
+    last; ``rest(params, dataset)`` is what remains, for torch to evaluate
+    beside them (None when nothing does): an undeclared ``extra`` of
+    ``make_bounds_prior`` (given the table's penalties, as the prior gives
+    them), or the whole of a prior that is no table.  A pure-Uniform spec
+    carries ``_bounds`` and runs as the bounds table it is.  None when a
+    table names a parameter the fit lacks.
     """
     if prior is log_prior_flat:
-        return (), None, ()
+        return (), None, (), ()
     bounds = getattr(prior, "_bounds", None)
     if bounds is None:
-        return (), prior, ()
+        spec = getattr(prior, "_prior_spec", None)
+        if isinstance(spec, (PriorSpec, MVGaussian)):
+            tables = declared_densities(spec, keys)
+            return None if tables is None else (tables[0], None, (), tables[1])
+        return (), prior, (), ()
     entries = []
     for name, (lo, hi) in bounds.items():
         key = name[1:] if name.startswith(":") else name
@@ -160,18 +216,18 @@ def split_prior(prior, keys):
         entries.append((keys.index(key), float(lo), float(hi)))
     extra = getattr(prior, "_extra", None)
     if extra is None:
-        return tuple(entries), None, ()
+        return tuple(entries), None, (), ()
     declared = getattr(extra, "_constraints", None)
     if declared is not None:
         if any(c.a not in keys or c.b not in keys for c in declared):
             return None
         return (tuple(entries), None,
-                tuple((c, keys.index(c.a), keys.index(c.b)) for c in declared))
+                tuple((c, keys.index(c.a), keys.index(c.b)) for c in declared), ())
 
     def rest(params, dataset=None):
         return extra(params, _Penalties(params, bounds), dataset)
 
-    return tuple(entries), rest, ()
+    return tuple(entries), rest, (), ()
 
 
 def kernel_coverage(terms, spec) -> str | None:
@@ -186,8 +242,8 @@ def kernel_coverage(terms, spec) -> str | None:
         if reason is not None:
             return f"term {i}: {reason}"
         if split_prior(t.prior, spec.keys) is None:
-            return (f"term {i}: its bounds table or constraints name a "
-                    "parameter the fit lacks")
+            return (f"term {i}: its bounds table, constraints or named prior "
+                    "name a parameter the fit lacks")
     return None
 
 
@@ -210,9 +266,9 @@ class FusedTerm:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPosterior:
-    """Everything one evaluation reads: the terms, the bounds table and
-    the declared constraints of every term's prior, the rest of the priors
-    and the scalar constant."""
+    """Everything one evaluation reads: the terms, the bounds table, the
+    declared constraints and the declared densities of every term's prior,
+    the rest of the priors and the scalar constant."""
 
     terms: tuple          # FusedTerm, in the fit's order
     bounds: tuple         # ((column, lo, hi), ...), every term's table in turn
@@ -225,6 +281,9 @@ class FusedPosterior:
     bhi: torch.Tensor     # (nb,) dtype
     cidx: torch.Tensor    # (nc, 3) int32: kind (CONSTRAINT_IDS), column a, column b
     cval: torch.Tensor    # (nc, 2) dtype: lo, hi (rounded to dtype, as torch compares)
+    densities: tuple      # ((kind, columns, values), ...): declared_densities, in turn
+    didx: torch.Tensor    # int32: each entry's (DENSITY_IDS kind, k, k columns), in turn
+    dval: torch.Tensor    # dtype: each entry's values, in turn
     meta: ctypes.Array    # host rows of csrc/models.cuh's make_terms
     col_ptrs: ctypes.Array  # every term's columns (kernel 2)
     rec_ptrs: ctypes.Array  # every term's packed records (kernel 1)
@@ -272,7 +331,7 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
     def col(a):
         return a.to(dtype).contiguous()
 
-    fused, bounds, constraints, rest = [], [], [], []
+    fused, bounds, constraints, densities, rest = [], [], [], [], []
     const = torch.zeros((), dtype=dtype, device=dev)
     for t in terms:
         ds = t.dataset
@@ -290,9 +349,10 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
         fused.append(FusedTerm(kind=kind, base=base, model_id=model_id,
                                names=names, pidx_host=pidx, cols=cols,
                                packed=pack_records(kind, cols)))
-        entries, remainder, declared = split_prior(t.prior, spec.keys)
+        entries, remainder, declared, dens = split_prior(t.prior, spec.keys)
         bounds.extend(entries)
         constraints.extend(declared)
+        densities.extend(dens)
         if remainder is not None:
             rest.append((remainder, ds))
 
@@ -313,6 +373,12 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
                           dtype=torch.int32, device=dev).reshape(-1, 3),
         cval=torch.tensor([[c.lo, c.hi] for c, _, _ in constraints],
                           dtype=dtype, device=dev).reshape(-1, 2),
+        densities=tuple(densities),
+        didx=torch.tensor([v for kind, cols, _ in densities
+                           for v in (DENSITY_IDS[kind], len(cols), *cols)],
+                          dtype=torch.int32, device=dev),
+        dval=torch.tensor([v for _, _, vals in densities for v in vals],
+                          dtype=dtype, device=dev),
         meta=(ctypes.c_int * len(meta))(*meta),
         col_ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs),
         rec_ptrs=(ctypes.c_void_p * len(fused))(*(ft.packed.data_ptr() for ft in fused)))
@@ -321,7 +387,7 @@ def prepare_fused_terms(terms, spec, dtype) -> FusedPosterior | None:
 def posterior_raw_plain(positions, post: FusedPosterior):
     """What the kernels compute, in plain PyTorch: every term's likelihood
     minus the scalar constant, plus the bounds table, plus the declared
-    constraints.
+    constraints, plus the declared densities.
 
     Each term runs its twin's zoo model on the twin's columns, so the
     parameter mapping is the kernel's.  Shared with the chunk stepper's
@@ -346,6 +412,8 @@ def posterior_raw_plain(positions, post: FusedPosterior):
         total = total + bound_penalty(positions[:, r], lo, hi)
     if post.constraints:
         total = total + constraints_plain(positions, post.constraints)
+    if post.densities:
+        total = total + densities_plain(positions, post.densities)
     return total
 
 
@@ -356,6 +424,40 @@ def constraints_plain(positions, constraints):
     for c, a, b in constraints:
         cols[c.a], cols[c.b] = positions[:, a], positions[:, b]
     return constraint_total([c for c, _, _ in constraints], cols.__getitem__)
+
+
+def densities_plain(positions, densities):
+    """The declared densities per walker (:func:`declared_densities`'
+    entries), summed in order, each operation rounded apart in the
+    positions' type as ``csrc/models.cuh:density_total`` does (only log
+    may differ by its rounding)."""
+    total = None
+    for kind, cols, vals in densities:
+        v = torch.tensor(vals, dtype=positions.dtype, device=positions.device)
+        if kind == "quad":
+            k = len(cols)
+            mean, m, log_norm = v[:k], v[k:-1], v[-1]
+            q, o = None, 0
+            for r in range(k):
+                z = None
+                for c in range(r + 1):
+                    t = m[o] * (positions[:, cols[c]] - mean[c])
+                    z = t if z is None else z + t
+                    o += 1
+                q = z * z if q is None else q + z * z
+            term = (-0.5 * q) + log_norm
+        else:
+            x = positions[:, cols[0]]
+            if kind == "logn":
+                lx = torch.log(torch.maximum(x, x.new_tensor(torch.finfo(x.dtype).tiny)))
+                x = lx
+            z = (x - v[0]) * v[1]
+            t = (-0.5 * z) * z
+            if kind == "logn":
+                t = t - lx
+            term = t + v[2]
+        total = term if total is None else total + term
+    return total
 
 
 def _rest(positions, post: FusedPosterior):
@@ -380,7 +482,8 @@ _PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
 _PLAN_R = (1, 2, 4)
 _FUSED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
 
 
 def _dtype_id(dtype) -> int:
@@ -498,6 +601,7 @@ def _launch_fused(positions, post: FusedPosterior, force=None):
               ctypes.addressof(post.rec_ptrs), post.bcol.data_ptr(),
               post.blo.data_ptr(), post.bhi.data_ptr(), len(post.bounds),
               post.cidx.data_ptr(), post.cval.data_ptr(), len(post.constraints),
+              post.didx.data_ptr(), post.dval.data_ptr(), len(post.densities),
               post.scalar_const.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, code, "fused_posterior")
     fused_posterior.launches += 1
@@ -605,6 +709,21 @@ _CONSTRAINT_CENSUS = {"le": {"flops": 1}, "diff_ge": {"flops": 2},
                       "ratio_in": {"flops": 1, "div": 1}}
 
 
+def density_census(kind: str, k: int = 1) -> dict:
+    """Operations of one declared density entry per walker
+    (``csrc/models.cuh: density_total``): a Gaussian's ``x - mu``, ``*
+    1/sigma``, ``-0.5 z``, ``* z``, ``+ c`` and ``total +=`` (6 flops); a
+    LogNormal's log and its ``- log x`` besides (7 flops, 1 log); a
+    k-parameter quadratic form's subtraction, multiply and add per
+    lower-triangle entry, ``z * z`` and ``q +`` per row, ``-0.5 q``, ``+
+    log_norm`` and ``total +=``."""
+    if kind == "gauss":
+        return {"flops": 6}
+    if kind == "logn":
+        return {"flops": 7, "log": 1}
+    return {"flops": 3 * k * (k + 1) // 2 + 2 * k + 3}
+
+
 def model_census(model_id: int, n_params: int | None = None) -> tuple[dict, dict]:
     """``(per walker-point, per walker)`` operations of one twin; the
     polynomial's Horner step (a multiply and an add, rounded apart) runs
@@ -654,8 +773,9 @@ def posterior_census(post: FusedPosterior) -> dict:
 
     Its ``per_point`` row already sums every term's points (term t's
     per-point row times its N), so count it with ``N = 1``.  The bounds
-    table and the declared constraints are counted per walker; the
-    priors' remainders run in torch beside the kernel and are not.
+    table, the declared constraints and the declared densities
+    (:func:`density_census`) are counted per walker; the priors'
+    remainders run in torch beside the kernel and are not.
     """
     point, walker = {}, {}
     for t in post.terms:
@@ -664,7 +784,9 @@ def posterior_census(post: FusedPosterior) -> dict:
         walker = _classes(walker, c["per_walker"])
     walker = _classes(walker, {c: len(post.bounds) * n for c, n in _BOUND_CENSUS.items()},
                       *(_CONSTRAINT_CENSUS[c.kind] for c, _, _ in post.constraints),
-                      {"flops": 1 if post.constraints else 0})
+                      {"flops": 1 if post.constraints else 0},
+                      *(density_census(kind, len(cols)) for kind, cols, _ in post.densities),
+                      {"flops": 1 if post.densities else 0})
     return op_census(per_point=point, per_walker=walker)
 
 
@@ -717,9 +839,20 @@ def opmix_bound_ms(census: dict, W: int, N: int, steps: int,
     return 1e3 * sum(n / rates[c] for c, n in totals.items() if n)
 
 
+def table_floats(post: FusedPosterior) -> int:
+    """Values of the prior's tables in the fit's type: bounds, constraints
+    and densities."""
+    return 2 * len(post.bounds) + 2 * len(post.constraints) + post.dval.numel()
+
+
+def table_ints(post: FusedPosterior) -> int:
+    """int32 entries of the prior's tables."""
+    return len(post.bounds) + 3 * len(post.constraints) + post.didx.numel()
+
+
 def fused_bytes(post: FusedPosterior, W: int) -> int:
     """Bytes one evaluation must move: positions in, every term's data
-    columns once, the posterior out."""
+    columns once, the prior's tables once, the posterior out."""
     size = post.terms[0].cols[0].element_size()
     data = sum(len(t.cols) * t.n for t in post.terms)
-    return size * (W * post.d + data + W)
+    return size * (W * post.d + data + W + table_floats(post)) + 4 * table_ints(post)

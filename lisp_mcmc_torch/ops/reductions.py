@@ -1,4 +1,5 @@
-"""Convergence reductions on the device: autocorrelation, ESS, split R-hat.
+"""Convergence reductions on the device: autocorrelation, ESS, split R-hat,
+rank-normalised R-hat, tail ESS and the MCSE of the mean.
 
 Port of ``lisp_mcmc_tpu/ops/reductions.py`` on ``torch.fft``: the
 reductions run on the ``(T, W)`` history where it lives, and only
@@ -9,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["autocorrelation", "effective_sample_size", "split_rhat"]
+from ..stats import median, nth_percentile
+
+__all__ = ["autocorrelation", "effective_sample_size", "split_rhat",
+           "rank_normalized_rhat", "tail_ess", "mcse_mean"]
 
 
 def autocorrelation(chains, max_lag: int | None = None):
@@ -73,3 +77,48 @@ def split_rhat(chains):
     ok = w > 1e-12 * var_plus
     return torch.where(ok, torch.sqrt(var_plus / torch.where(ok, w, 1.0)),
                        torch.inf)
+
+
+def _rank_normalize(chains):
+    """Average-rank Blom normal scores over all samples jointly: rank r
+    (ties share their average rank, which keeps a frozen ensemble frozen
+    for :func:`split_rhat`'s guard) maps to ``ndtri((r - 3/8) / (S +
+    1/4))`` (Vehtari et al. 2021)."""
+    chains = torch.as_tensor(chains)
+    v = chains.reshape(-1).contiguous()
+    s = torch.sort(v).values
+    lo = torch.searchsorted(s, v, right=False)
+    hi = torch.searchsorted(s, v, right=True)
+    r = 0.5 * (lo + hi - 1).to(v.dtype) + 1.0
+    return torch.special.ndtri((r - 0.375) / (v.numel() + 0.25)).reshape(chains.shape)
+
+
+def rank_normalized_rhat(chains):
+    """(bulk, tail) rank-normalised split R-hat of ``(T, W)`` chains
+    (Vehtari et al. 2021): split R-hat of the rank-normalised draws, and of
+    the folded draws ``|x - median|``, which sees chains that agree in
+    location but not in scale."""
+    chains = torch.as_tensor(chains)
+    bulk = split_rhat(_rank_normalize(chains))
+    folded = torch.abs(chains - median(chains, axis=None))
+    tail = split_rhat(_rank_normalize(folded))
+    return bulk, tail
+
+
+def tail_ess(chains):
+    """Tail ESS: the smaller ESS of the indicator chains ``x <= q05`` and
+    ``x >= q95`` of ``(T, W)`` chains."""
+    chains = torch.as_tensor(chains)
+    q05 = nth_percentile(chains, 5.0, axis=None)
+    q95 = nth_percentile(chains, 95.0, axis=None)
+    lo = effective_sample_size((chains <= q05).to(chains.dtype))
+    hi = effective_sample_size((chains >= q95).to(chains.dtype))
+    return torch.minimum(lo, hi)
+
+
+def mcse_mean(chains):
+    """Monte Carlo standard error of the mean of ``(T, W)`` chains:
+    ``sqrt(var / ESS)``, the pooled variance with ddof 1."""
+    chains = torch.as_tensor(chains)
+    ess = effective_sample_size(chains)
+    return torch.sqrt(torch.var(chains, correction=1) / torch.clamp_min(ess, 1.0))

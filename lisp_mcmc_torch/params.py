@@ -15,7 +15,9 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "normalize_params"]
+from .device import resolve_device
+
+__all__ = ["ParamSpec", "normalize_params", "map_params", "scale_params", "reduce_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +65,28 @@ def _norm_key(key: str) -> str:
     return key[1:] if key.startswith(":") else key
 
 
-def normalize_params(params, dtype=torch.float64, device="cpu"):
+def normalize_params(params, dtype=torch.float64, device=None):
     """Normalize user params to ``(spec, (d,) tensor)``.
 
     Accepts a ``{name: scalar}`` dict or a flat list/tuple/array, coerced
     to float like ``to-double-floats`` (mcmc-fitting.lisp:833).
+    ``device=None`` means the GPU (``device.resolve_device``: it raises
+    without one); pass ``device="cpu"`` for the CPU.
     """
     spec = ParamSpec.from_params(params)
-    return spec, spec.flatten(params, dtype=dtype, device=device)
+    return spec, spec.flatten(params, dtype=dtype, device=resolve_device(device))
+
+
+def map_params(fn, params: Mapping[str, Any]) -> dict[str, Any]:
+    """Apply ``fn`` to every value (``map-plist``, mcmc-fitting.lisp:450)."""
+    return {k: fn(v) for k, v in params.items()}
+
+
+def scale_params(scale, params: Mapping[str, Any]) -> dict[str, Any]:
+    """``scale-plist`` (mcmc-fitting.lisp:456)."""
+    return map_params(lambda v: v * scale, params)
+
+
+def reduce_params(fn, p1: Mapping[str, Any], p2: Mapping[str, Any]) -> dict[str, Any]:
+    """Combine two param dicts key by key (``reduce-plists``, 442)."""
+    return {k: fn(v, p2[k]) for k, v in p1.items()}

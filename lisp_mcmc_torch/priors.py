@@ -9,20 +9,28 @@ Rebuilds the reference's prior layer (mcmc-fitting.lisp):
   - data-dependent prior factories (``log-prior-fixer``, 837-840).
   - the hard constraint style of ``nv-specific.lisp:31-34``, and its
     declared form (:func:`declared_constraints` of :func:`le`,
-    :func:`diff_ge` and :func:`ratio_in` entries).
+    :func:`diff_ge` and :func:`ratio_in` entries);
+and the JAX package's named priors (``lisp_mcmc_tpu/priors.py``):
+:class:`PriorSpec` of :class:`Uniform`, :class:`Gaussian` and
+:class:`LogNormal` distributions, the correlated :class:`MVGaussian`, and
+the unit-cube maps the evidence layer reads.
 
 A prior is ``prior(params, dataset) -> scalar or (W,)``; batched
 parameter values are ``(W,)`` columns.  The CUDA kernels cover the flat
-prior and a bounds prior whose ``extra`` is absent or declared (they read
-``._bounds`` and the extra's ``._constraints``); any other prior is a
-closure that only torch can evaluate.
+prior, a bounds prior whose ``extra`` is absent or declared (they read
+``._bounds`` and the extra's ``._constraints``) and a named prior (they
+read ``._prior_spec`` as a table of walls and densities,
+``ops/loglik_kernel.split_prior``); any other prior is a closure that
+only torch can evaluate.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Mapping
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -39,6 +47,14 @@ __all__ = [
     "declared_constraints",
     "combine_priors",
     "resolve_prior",
+    "Uniform",
+    "Gaussian",
+    "LogNormal",
+    "MVGaussian",
+    "PriorSpec",
+    "as_prior_spec",
+    "resolve_prior_spec",
+    "unit_cube_wall",
 ]
 
 # Exact constants from mcmc-fitting.lisp:360.
@@ -195,3 +211,628 @@ def resolve_prior(prior, params, dataset):
     if callable(result):
         return result
     return prior
+
+
+# --------------------------------------------------------------------------
+# Named priors (the JAX package's PriorSpec layer, priors.py:150-814).
+#
+# A PriorSpec carries both halves of a prior for a product of independent
+# 1-D distributions: exact draws (``sample``, host numpy RNG) and the
+# normalised density (``log_pdf``); the term it adds to the posterior
+# (``installed``: 0 for Uniform, the normalised log-density otherwise, plus
+# a penalty wall at any truncation edge); and the per-parameter inverse-CDF
+# map from the unit cube (``transform``/``inverse``), on which the declared
+# prior is the Lebesgue measure (``fit.unit_cube_view``).  Values are torch
+# tensors: a Python number becomes a float64 0-d tensor, and a tensor keeps
+# its dtype and device.
+
+
+def _col(x):
+    """``x`` as a floating tensor: a tensor keeps its type (an integer one
+    becomes float64), anything else becomes float64."""
+    if torch.is_tensor(x):
+        return x if x.is_floating_point() else x.to(torch.float64)
+    return torch.as_tensor(np.asarray(x, np.float64))
+
+
+def _ndtr_np(x):
+    from scipy.special import ndtr
+
+    return ndtr(x)
+
+
+def _ndtri_np(x):
+    from scipy.special import ndtri
+
+    return ndtri(x)
+
+
+def _unit_eps(dtype) -> float:
+    """How far the unit-cube maps keep ``u`` from 0 and 1."""
+    return 1e-12 if dtype == torch.float64 else 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class Uniform:
+    """Uniform(low, high): the reference's flat-in-bounds prior as a spec."""
+
+    low: float
+    high: float
+
+    def __post_init__(self):
+        if not self.high > self.low:
+            raise ValueError(f"Uniform: need high > low, got ({self.low}, {self.high})")
+        if not (math.isfinite(self.low) and math.isfinite(self.high)):
+            # An infinite box has no normalisable width.
+            raise ValueError(
+                f"Uniform: bounds must be finite, got ({self.low}, {self.high}); "
+                "use Gaussian/LogNormal for unbounded support")
+
+    @property
+    def support(self):
+        return (float(self.low), float(self.high))
+
+    def sample(self, rng, n):
+        return rng.uniform(self.low, self.high, size=n)
+
+    def log_pdf(self, x):
+        x = _col(x)
+        inside = (self.low < x) & (x < self.high)
+        return torch.where(inside, x.new_tensor(-math.log(self.high - self.low)),
+                           x.new_tensor(-math.inf))
+
+    def installed_log_pdf(self, x):
+        # A bounds prior adds 0 inside the box: the normalisation lives in
+        # the declared measure, not in the term.
+        return torch.zeros_like(_col(x))
+
+    def wall(self, x):
+        return bound_penalty(_col(x), self.low, self.high)
+
+    def icdf(self, u):
+        return self.low + (self.high - self.low) * _col(u)
+
+    def cdf(self, x):
+        return torch.clip((_col(x) - self.low) / (self.high - self.low), 0.0, 1.0)
+
+    def to_meta(self):
+        return {"kind": "uniform", "low": float(self.low), "high": float(self.high)}
+
+
+def _trunc_z(mu, sigma, low, high):
+    """(z_low, z_high): the CDF values of the truncation points."""
+    za = 0.0 if math.isinf(low) else float(_ndtr_np((low - mu) / sigma))
+    zb = 1.0 if math.isinf(high) else float(_ndtr_np((high - mu) / sigma))
+    if not zb > za:
+        raise ValueError(
+            f"truncation ({low}, {high}) leaves no mass under N({mu}, {sigma}^2)")
+    return za, zb
+
+
+@dataclasses.dataclass(frozen=True)
+class Gaussian:
+    """Gaussian(mu, sigma), optionally truncated to (low, high)."""
+
+    mu: float
+    sigma: float
+    low: float = -math.inf
+    high: float = math.inf
+
+    def __post_init__(self):
+        if not self.sigma > 0:
+            raise ValueError(f"Gaussian: need sigma > 0, got {self.sigma}")
+        if not self.high > self.low:
+            raise ValueError(f"Gaussian: need high > low, got ({self.low}, {self.high})")
+        _trunc_z(self.mu, self.sigma, self.low, self.high)  # validates the mass
+
+    @property
+    def support(self):
+        return (float(self.low), float(self.high))
+
+    @property
+    def truncated(self) -> bool:
+        """Whether a wall stands at either edge (:meth:`wall` nonzero)."""
+        return not (math.isinf(self.low) and math.isinf(self.high))
+
+    @property
+    def _log_mass(self):
+        za, zb = _trunc_z(self.mu, self.sigma, self.low, self.high)
+        return math.log(zb - za)
+
+    def sample(self, rng, n):
+        za, zb = _trunc_z(self.mu, self.sigma, self.low, self.high)
+        u = rng.uniform(za, zb, size=n)
+        return self.mu + self.sigma * _ndtri_np(u)
+
+    def _smooth_log_pdf(self, x):
+        z = (_col(x) - self.mu) / self.sigma
+        return (-0.5 * z * z
+                - math.log(self.sigma) - 0.5 * math.log(2.0 * math.pi)
+                - self._log_mass)
+
+    def log_pdf(self, x):
+        x = _col(x)
+        inside = (self.low < x) & (x < self.high)
+        return torch.where(inside, self._smooth_log_pdf(x), -math.inf)
+
+    def installed_log_pdf(self, x):
+        return self._smooth_log_pdf(x)
+
+    def wall(self, x):
+        x = _col(x)
+        if not self.truncated:
+            return torch.zeros_like(x)
+        # bound_penalty takes an infinite edge as it is: |v - inf| = inf
+        # loses every min() and the inside test stays right.
+        return bound_penalty(x, self.low, self.high)
+
+    def icdf(self, u):
+        za, zb = _trunc_z(self.mu, self.sigma, self.low, self.high)
+        return self.mu + self.sigma * torch.special.ndtri(za + (zb - za) * _col(u))
+
+    def cdf(self, x):
+        za, zb = _trunc_z(self.mu, self.sigma, self.low, self.high)
+        z = torch.special.ndtr((_col(x) - self.mu) / self.sigma)
+        return torch.clip((z - za) / (zb - za), 0.0, 1.0)
+
+    def to_meta(self):
+        return {"kind": "gaussian", "mu": float(self.mu), "sigma": float(self.sigma),
+                "low": None if math.isinf(self.low) else float(self.low),
+                "high": None if math.isinf(self.high) else float(self.high)}
+
+
+@dataclasses.dataclass(frozen=True)
+class LogNormal:
+    """LogNormal: ``log x ~ N(mu, sigma^2)``, optionally truncated to (low, high)."""
+
+    mu: float
+    sigma: float
+    low: float = 0.0
+    high: float = math.inf
+
+    def __post_init__(self):
+        if not self.sigma > 0:
+            raise ValueError(f"LogNormal: need sigma > 0, got {self.sigma}")
+        if self.low < 0 or not self.high > self.low:
+            raise ValueError(
+                f"LogNormal: need 0 <= low < high, got ({self.low}, {self.high})")
+        self._trunc_z()  # validates the mass
+
+    def _trunc_z(self):
+        lo = -math.inf if self.low <= 0.0 else math.log(self.low)
+        hi = math.inf if math.isinf(self.high) else math.log(self.high)
+        return _trunc_z(self.mu, self.sigma, lo, hi)
+
+    @property
+    def support(self):
+        return (float(self.low), float(self.high))
+
+    @property
+    def truncated(self) -> bool:
+        """Whether a wall stands at either edge (:meth:`wall` nonzero)."""
+        return not (self.low <= 0.0 and math.isinf(self.high))
+
+    @property
+    def _log_mass(self):
+        za, zb = self._trunc_z()
+        return math.log(zb - za)
+
+    def sample(self, rng, n):
+        za, zb = self._trunc_z()
+        u = rng.uniform(za, zb, size=n)
+        return np.exp(self.mu + self.sigma * _ndtri_np(u))
+
+    def _smooth_log_pdf(self, x):
+        # The clamped log keeps the value finite at x <= 0, where the
+        # quadratic term drives it far down anyway.  The clamp is the
+        # column type's smallest normal: a literal 1e-300 is 0 in float32,
+        # which would make log(0) and the value NaN there.
+        x = _col(x)
+        lx = torch.log(torch.clamp_min(x, torch.finfo(x.dtype).tiny))
+        z = (lx - self.mu) / self.sigma
+        return (-lx - 0.5 * z * z
+                - math.log(self.sigma) - 0.5 * math.log(2.0 * math.pi)
+                - self._log_mass)
+
+    def log_pdf(self, x):
+        x = _col(x)
+        inside = (x > self.low) & (x < self.high)
+        return torch.where(inside, self._smooth_log_pdf(x), -math.inf)
+
+    def installed_log_pdf(self, x):
+        return self._smooth_log_pdf(x)
+
+    def wall(self, x):
+        x = _col(x)
+        if not self.truncated:
+            # The smooth density already collapses at x <= 0.
+            return torch.zeros_like(x)
+        return bound_penalty(x, self.low, self.high)
+
+    def icdf(self, u):
+        za, zb = self._trunc_z()
+        return torch.exp(self.mu + self.sigma * torch.special.ndtri(za + (zb - za) * _col(u)))
+
+    def cdf(self, x):
+        za, zb = self._trunc_z()
+        lx = torch.log(torch.clamp_min(_col(x), 1e-300))
+        z = torch.special.ndtr((lx - self.mu) / self.sigma)
+        return torch.clip((z - za) / (zb - za), 0.0, 1.0)
+
+    def to_meta(self):
+        return {"kind": "lognormal", "mu": float(self.mu), "sigma": float(self.sigma),
+                "low": float(self.low),
+                "high": None if math.isinf(self.high) else float(self.high)}
+
+
+_DIST_KINDS = {"uniform": Uniform, "gaussian": Gaussian, "lognormal": LogNormal}
+
+
+def _dist_from_meta(meta: dict):
+    kind = meta["kind"]
+    cls = _DIST_KINDS[kind]
+    kwargs = {k: v for k, v in meta.items() if k != "kind"}
+    if kind == "gaussian":
+        kwargs["low"] = -math.inf if kwargs.get("low") is None else kwargs["low"]
+        kwargs["high"] = math.inf if kwargs.get("high") is None else kwargs["high"]
+    if kind == "lognormal":
+        kwargs["high"] = math.inf if kwargs.get("high") is None else kwargs["high"]
+    return cls(**kwargs)
+
+
+def _norm_key(k):
+    return k[1:] if isinstance(k, str) and k.startswith(":") else k
+
+
+class PriorSpec(Mapping):
+    """A named prior: one independent 1-D distribution per parameter.
+
+    Values may be :class:`Uniform`/:class:`Gaussian`/:class:`LogNormal`
+    instances or ``(low, high)`` tuples (read as :class:`Uniform`, so every
+    bounds table is a spec).  The Mapping protocol gives the
+    distributions; :meth:`as_log_prior` builds the posterior term to fit
+    with, which the CUDA kernels evaluate as a table
+    (``ops/loglik_kernel.split_prior``).
+    """
+
+    def __init__(self, dists: Mapping):
+        out = {}
+        for k, v in dists.items():
+            key = _norm_key(k)
+            if isinstance(v, (Uniform, Gaussian, LogNormal)):
+                out[key] = v
+            elif isinstance(v, (tuple, list)) and len(v) == 2:
+                out[key] = Uniform(float(v[0]), float(v[1]))
+            else:
+                raise ValueError(
+                    f"PriorSpec: parameter {key!r} must be a distribution or "
+                    f"a (low, high) tuple, got {v!r}")
+        self._dists = out
+
+    def __getitem__(self, k):
+        return self._dists[k]
+
+    def __iter__(self):
+        return iter(self._dists)
+
+    def __len__(self):
+        return len(self._dists)
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}: {v}" for k, v in self._dists.items())
+        return f"PriorSpec({{{inner}}})"
+
+    def __eq__(self, other):
+        return isinstance(other, PriorSpec) and self._dists == other._dists
+
+    @classmethod
+    def from_bounds(cls, bounds: Mapping[str, tuple]) -> "PriorSpec":
+        return cls(bounds)
+
+    @property
+    def is_uniform(self) -> bool:
+        return all(isinstance(d, Uniform) for d in self._dists.values())
+
+    @property
+    def bounds(self):
+        """The box table when every support is finite, else None."""
+        box = {}
+        for k, d in self._dists.items():
+            lo, hi = d.support
+            if math.isinf(lo) or math.isinf(hi):
+                return None
+            box[k] = (lo, hi)
+        return box
+
+    def _ordered(self, keys):
+        missing = [k for k in keys if k not in self._dists]
+        if missing:
+            raise ValueError(f"PriorSpec: missing parameters {missing}")
+        return [self._dists[k] for k in keys]
+
+    def sample(self, rng, n: int, keys=None):
+        """(n, d) exact prior draws (host numpy RNG), columns in ``keys`` order."""
+        keys = list(keys) if keys is not None else list(self._dists)
+        cols = [np.asarray(d.sample(rng, n)) for d in self._ordered(keys)]
+        return np.stack(cols, axis=-1)
+
+    def log_pdf(self, params: Mapping, dataset=None):
+        """The normalised log prior density at a params dict."""
+        total = 0.0
+        for k, d in self._dists.items():
+            total = total + d.log_pdf(params[k])
+        return _col(total)
+
+    def installed_vec(self, theta, keys):
+        """The installed density terms summed at ``(..., d)`` parameter
+        vectors: ``(...)``."""
+        theta = _col(theta)
+        total = torch.zeros(theta.shape[:-1], dtype=theta.dtype, device=theta.device)
+        for i, d in enumerate(self._ordered(keys)):
+            total = total + d.installed_log_pdf(theta[..., i])
+        return total
+
+    def transform(self, u, keys):
+        """Inverse-CDF map: ``(..., d)`` unit-cube points to parameter
+        vectors.  ``u`` is clamped away from 0 and 1 so the map stays finite
+        where a proposal steps outside the cube (the wall rejects it)."""
+        u = _col(u)
+        eps = _unit_eps(u.dtype)
+        uc = torch.clip(u, eps, 1.0 - eps)
+        cols = [d.icdf(uc[..., i]) for i, d in enumerate(self._ordered(keys))]
+        return torch.stack(cols, dim=-1).to(u.dtype)
+
+    def inverse(self, theta, keys):
+        """CDF map: ``(..., d)`` parameter vectors to unit-cube points."""
+        theta = _col(theta)
+        cols = [d.cdf(theta[..., i]) for i, d in enumerate(self._ordered(keys))]
+        return torch.stack(cols, dim=-1)
+
+    def as_log_prior(self) -> Callable:
+        """The posterior prior term to fit with.
+
+        Uniform components add the reference's exterior bound penalty (0
+        inside, mcmc-fitting.lisp:358-360); named ones their normalised
+        log-density, plus a wall at any truncation edge.  The callable
+        carries ``_prior_spec`` (and, for a pure-uniform spec, ``_bounds``
+        and ``_extra = None``, so it runs as the bounds table it is).
+        """
+        dists = self._dists
+
+        def prior(params, dataset=None):
+            total = 0.0
+            for k, d in dists.items():
+                total = total + d.installed_log_pdf(params[k]) + d.wall(params[k])
+            return _col(total)
+
+        prior._prior_spec = self
+        prior.__name__ = "prior_spec"
+        if self.is_uniform:
+            prior._bounds = {k: d.support for k, d in dists.items()}
+            prior._extra = None
+        return prior
+
+    def to_meta(self) -> dict:
+        return {k: d.to_meta() for k, d in self._dists.items()}
+
+    @classmethod
+    def from_meta(cls, meta: dict) -> "PriorSpec | MVGaussian":
+        if "__mv_gaussian__" in meta:
+            return MVGaussian.from_meta(meta)
+        return cls({k: _dist_from_meta(m) for k, m in meta.items()})
+
+
+def as_prior_spec(prior_or_bounds) -> "PriorSpec | MVGaussian":
+    """A PriorSpec from a PriorSpec, a bounds dict or a dict of
+    distributions.  An :class:`MVGaussian` passes through: its Mapping face
+    would keep only the marginals and drop the correlations."""
+    if isinstance(prior_or_bounds, (PriorSpec, MVGaussian)):
+        return prior_or_bounds
+    if isinstance(prior_or_bounds, Mapping):
+        return PriorSpec(prior_or_bounds)
+    raise ValueError(
+        f"expected a PriorSpec or a {{param: (low, high) | distribution}} "
+        f"mapping, got {type(prior_or_bounds).__name__}")
+
+
+def resolve_prior_spec(walker, prior=None, bounds=None):
+    """The spec the evidence and calibration layer works with: an explicit
+    ``prior=``, then ``bounds=`` (as a Uniform spec), then a fitted term's
+    ``_prior_spec``, then a fitted term's ``_bounds`` table, else None."""
+    if prior is not None:
+        return as_prior_spec(prior)
+    if bounds is not None:
+        return as_prior_spec(bounds)
+    for t in getattr(walker, "terms", None) or []:
+        s = getattr(t.prior, "_prior_spec", None)
+        if s is not None:
+            return s
+        b = getattr(t.prior, "_bounds", None)
+        if b:
+            return PriorSpec.from_bounds(b)
+    return None
+
+
+def unit_cube_wall(u):
+    """Exterior penalty that keeps a u-space walk inside the unit cube,
+    summed over the last axis: ``(..., d) -> (...)``.
+
+    The reference's 1e-5 rate suits physical scales; on the unit cube it
+    is too shallow for the hottest rung of an evidence ladder, so the wall
+    uses a unit rate: ``-1e10 * expm1(dist)`` is ~1e8 one percent outside.
+    """
+    u = _col(u)
+    dist = torch.clamp_min(torch.maximum(-u, u - 1.0), 0.0)
+    return torch.sum(torch.where(dist > 0, PENALTY_SCALE * torch.expm1(dist), 0.0), dim=-1)
+
+
+class MVGaussian(Mapping):
+    """Correlated Gaussian prior over several parameters jointly.
+
+    The experiment-chaining prior: one fit's posterior summary (an object
+    with ``.mode``, a ``{name: value}`` mapping, ``.cov`` and
+    ``.n_clamped``, as the JAX package's ``laplace_approx`` returns; see
+    :meth:`from_laplace`) becomes the next fit's prior, correlations
+    included.  The unit-cube map is ``theta = mean + L ndtri(u)`` with
+    ``L`` the covariance's Cholesky factor.  Mapping access gives the 1-D
+    marginal ``Gaussian(mu_k, sqrt(cov_kk))``, for display; the joint
+    density is what ``log_pdf`` and ``installed_vec`` use.
+    """
+
+    def __init__(self, mean: Mapping, cov):
+        self._keys = [_norm_key(k) for k in mean]
+        self._mean = np.asarray([float(mean[k]) for k in mean], np.float64)
+        self._cov = np.asarray(cov, np.float64)
+        d = len(self._keys)
+        if self._cov.shape != (d, d):
+            raise ValueError(f"MVGaussian: cov shape {self._cov.shape} != ({d}, {d})")
+        self._cov = 0.5 * (self._cov + self._cov.T)
+        try:
+            self._chol = np.linalg.cholesky(self._cov)
+        except np.linalg.LinAlgError:
+            raise ValueError("MVGaussian: covariance is not positive definite") from None
+        self._log_norm = (-0.5 * d * math.log(2.0 * math.pi)
+                          - float(np.sum(np.log(np.diag(self._chol)))))
+
+    @classmethod
+    def from_laplace(cls, laplace, inflate: float = 1.0) -> "MVGaussian":
+        """The next fit's prior from a Laplace summary; ``inflate`` scales
+        the standard deviations.  A clamped Hessian direction is refused:
+        the posterior never constrained it."""
+        if getattr(laplace, "n_clamped", 0):
+            raise ValueError(
+                f"MVGaussian.from_laplace: {laplace.n_clamped} Hessian "
+                "direction(s) were clamped — the Laplace covariance is "
+                "unreliable along them; fix the fit (or build the prior "
+                "by hand) instead of chaining a degenerate curvature")
+        return cls(laplace.mode, float(inflate) ** 2 * np.asarray(laplace.cov))
+
+    def __getitem__(self, k):
+        try:
+            i = self._keys.index(k)
+        except ValueError:
+            # The Mapping protocol (``k in spec``) relies on KeyError.
+            raise KeyError(k) from None
+        return Gaussian(float(self._mean[i]), float(np.sqrt(self._cov[i, i])))
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def __repr__(self):
+        return f"MVGaussian(keys={self._keys}, mean={list(self._mean)})"
+
+    def __eq__(self, other):
+        return (isinstance(other, MVGaussian) and self._keys == other._keys
+                and np.array_equal(self._mean, other._mean)
+                and np.array_equal(self._cov, other._cov))
+
+    @property
+    def is_uniform(self) -> bool:
+        return False
+
+    @property
+    def bounds(self):
+        return None
+
+    @property
+    def keys_order(self) -> tuple:
+        """The parameters in the order of ``mean`` and ``cov``."""
+        return tuple(self._keys)
+
+    @property
+    def mean(self) -> np.ndarray:
+        return self._mean.copy()
+
+    @property
+    def chol(self) -> np.ndarray:
+        """The covariance's lower Cholesky factor."""
+        return self._chol.copy()
+
+    @property
+    def log_norm(self) -> float:
+        """``-k/2 log 2 pi - log det L``, the density's constant."""
+        return self._log_norm
+
+    def _perm(self, keys):
+        """The index in the internal order of each requested key."""
+        keys = list(keys)
+        missing = [k for k in keys if k not in self._keys]
+        if missing:
+            raise ValueError(f"MVGaussian: missing parameters {missing}")
+        if len(keys) != len(self._keys):
+            raise ValueError(
+                "MVGaussian: a correlated prior covers ALL its parameters "
+                f"jointly; asked for {keys}, declared {self._keys}")
+        return [self._keys.index(k) for k in keys]
+
+    def _inv_perm(self, keys):
+        inv = [0] * len(self._keys)
+        for j, i in enumerate(self._perm(keys)):
+            inv[i] = j
+        return inv
+
+    def sample(self, rng, n: int, keys=None):
+        keys = list(keys) if keys is not None else list(self._keys)
+        p = self._perm(keys)
+        z = rng.standard_normal((n, len(self._keys)))
+        th = self._mean + z @ self._chol.T
+        return th[:, p]
+
+    def _installed_internal(self, th_i):
+        chol = torch.as_tensor(self._chol, dtype=th_i.dtype, device=th_i.device)
+        mean = torch.as_tensor(self._mean, dtype=th_i.dtype, device=th_i.device)
+        z = torch.linalg.solve_triangular(chol, (th_i - mean)[..., None], upper=False)[..., 0]
+        return -0.5 * torch.sum(z * z, dim=-1) + self._log_norm
+
+    def log_pdf(self, params: Mapping, dataset=None):
+        """The joint log density at a params dict of values or ``(W,)``
+        columns."""
+        cols = torch.broadcast_tensors(*(_col(params[k]) for k in self._keys))
+        dtype = torch.promote_types(cols[0].dtype, cols[-1].dtype)
+        theta = torch.stack([c.to(dtype) for c in cols], dim=-1)
+        return self._installed_internal(theta)
+
+    def installed_vec(self, theta, keys):
+        theta = _col(theta)
+        return self._installed_internal(theta[..., self._inv_perm(keys)])
+
+    def transform(self, u, keys):
+        u = _col(u)
+        p = self._perm(keys)
+        eps = _unit_eps(u.dtype)
+        z_i = torch.special.ndtri(torch.clip(u, eps, 1.0 - eps))[..., self._inv_perm(keys)]
+        chol = torch.as_tensor(self._chol, dtype=u.dtype, device=u.device)
+        mean = torch.as_tensor(self._mean, dtype=u.dtype, device=u.device)
+        th_i = mean + (chol @ z_i[..., None])[..., 0]
+        return th_i[..., p].to(u.dtype)
+
+    def inverse(self, theta, keys):
+        theta = _col(theta)
+        th_i = theta[..., self._inv_perm(keys)]
+        chol = torch.as_tensor(self._chol, dtype=theta.dtype, device=theta.device)
+        mean = torch.as_tensor(self._mean, dtype=theta.dtype, device=theta.device)
+        z = torch.linalg.solve_triangular(chol, (th_i - mean)[..., None], upper=False)[..., 0]
+        return torch.special.ndtr(z)[..., self._perm(keys)]
+
+    def as_log_prior(self) -> Callable:
+        def prior(params, dataset=None):
+            return self.log_pdf(params)
+
+        prior._prior_spec = self
+        prior.__name__ = "mv_gaussian_prior"
+        return prior
+
+    def to_meta(self) -> dict:
+        return {"__mv_gaussian__": {
+            "keys": list(self._keys),
+            "mean": [float(v) for v in self._mean],
+            "cov": [[float(v) for v in row] for row in self._cov],
+        }}
+
+    @classmethod
+    def from_meta(cls, meta: dict) -> "MVGaussian":
+        m = meta["__mv_gaussian__"]
+        return cls(dict(zip(m["keys"], m["mean"])), m["cov"])

@@ -20,7 +20,10 @@ generated here with numpy (the flagship's own is
 - :func:`twin_case`: a fit of each zoo model, for holding its CUDA twin
   against the plain model;
 - :func:`dense_l`: a dense proposal factor for holding the chunk kernel
-  against its plain version.
+  against its plain version;
+- :func:`flagship_prior_spec`: a named prior on the flagship fit that
+  uses every kind the kernels declare, and :func:`prior_edge_walkers`,
+  which puts walkers outside its walls and at a LogNormal's x <= 0.
 """
 
 from __future__ import annotations
@@ -28,7 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import math
+
 from .models import DEVICE_MODELS, double_lorentzian_bg, lorder_mixed_bg, renamed
+from .priors import Gaussian, LogNormal, PriorSpec
 from .roofline import FLAGSHIP, N_POINTS
 
 __all__ = ["dense_l", "global_fit", "nv_spectra", "NV_SPECTRA", "TWIN_PARAMS",
@@ -171,3 +177,36 @@ def dense_l(scales, seed: int = 0) -> torch.Tensor:
     c = a @ a.T + np.eye(s.shape[0])
     c = c / np.sqrt(np.outer(np.diag(c), np.diag(c)))
     return torch.tensor(np.linalg.cholesky(c * np.outer(s, s)), dtype=torch.float32)
+
+
+def flagship_prior_spec() -> PriorSpec:
+    """A named prior on the flagship fit (``roofline.FLAGSHIP``, from
+    ``roofline.START``) with every kind: a weak Gaussian on x0 truncated to
+    the data's range, an untruncated LogNormal on the linewidth, a
+    Gaussian on mix truncated on one side, and Uniform boxes on the
+    scale and the background, wide around both the start and the truth."""
+    return PriorSpec({
+        "scale": (-1e-3, 1e-3),
+        "linewidth": LogNormal(math.log(100.0), 1.0),
+        "x0": Gaussian(2780.0, 200.0, low=2000.0, high=3600.0),
+        "mix": Gaussian(3.0, 2.0, low=0.0),
+        "bg0": (-1e-4, 1e-4),
+        "bg1": (-1e-8, 1e-8),
+    })
+
+
+def prior_edge_walkers(position, keys) -> torch.Tensor:
+    """``position`` with one walker in eight moved past a wall of
+    :func:`flagship_prior_spec`: x0 below and above its truncation, mix
+    below its one-sided one, the linewidth below 0 (the LogNormal's
+    clamped log; not at 0, where the model is 0/0 at a data point that
+    equals x0), and the scale outside its box."""
+    pos = position.clone()
+    i = keys.index
+    pos[0::8, i("x0")] = 1990.0
+    pos[1::8, i("x0")] = 3610.0
+    pos[2::8, i("mix")] = -0.5
+    pos[3::8, i("linewidth")] = -0.5
+    pos[4::8, i("linewidth")] = -3.0
+    pos[5::8, i("scale")] = 2e-3
+    return pos

@@ -114,7 +114,8 @@ def test_split_prior_resolves_the_nv_constraints(dtype):
     x, ys = synthetic.nv_spectra()
     prior = nv.make_nv_prior(ys[0])
     keys = ("mu2", "mu1", "scale2", "scale1", "bg0", "sigma")  # not the twin's order
-    bounds, rest, cons = tlk.split_prior(prior, keys)
+    bounds, rest, cons, dens = tlk.split_prior(prior, keys)
+    assert dens == ()
     assert rest is None
     assert [b[0] for b in bounds] == [keys.index(k) for k in KEYS]
     assert [(c.kind, a, b) for c, a, b in cons] == [

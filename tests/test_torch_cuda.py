@@ -18,7 +18,10 @@ its moments within 5e-3 of sqrt(m_ii m_jj) (chip_smoke.MOMENT_RTOL) and
 its trace within 1e-4 (``chunk_kernel.chunk_diff``), at every d from 1
 to 64 and on tiled data; the
 NV prior's declared constraints in both kernels, -1e9 exactly where the
-plain version puts it; the chain
+plain version puts it; a named prior (``synthetic.flagship_prior_spec``,
+and an ``MVGaussian`` over three parameters) as declared walls and
+densities in both kernels, with walkers past every wall and at a
+LogNormal's x <= 0, at the same tolerances; the chain
 probe at rtol 1e-6 in float32 (the plain version rounds as the kernel
 does, fma included) and 1e-12 in float64 (the kernel's DFMA rounds once
 where the plain version rounds twice), with a check that the chains move
@@ -249,6 +252,85 @@ def test_chunk_kernel_nv_constraints_match_plain(cuda):
     assert bool((nv._nv_constraints(cols, None, None) == 0).all())
     ratio = cols["scale1"] / cols["scale2"]
     assert ratio.max().item() > 1.095, "the walkers never neared the ratio's edge"
+
+
+def _mv_gaussian():
+    """An MVGaussian over (linewidth, x0, mix) about the flagship's values
+    with correlations (seeded), as a fit's covariance would give it."""
+    keys = ("linewidth", "x0", "mix")
+    a = np.random.default_rng(3).standard_normal((3, 3))
+    c = a @ a.T + np.eye(3)
+    c = c / np.sqrt(np.outer(np.diag(c), np.diag(c)))
+    s = np.array([5.0, 2.0, 0.05])
+    return tfit.MVGaussian({k: FLAGSHIP[k] for k in keys}, c * np.outer(s, s))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("prior", ["spec", "mv_gaussian"])
+def test_fused_kernel_named_prior_matches_plain(cuda, prior, dtype, rtol):
+    """The named prior as kernel 1's declared table: one launch, nothing
+    left for torch, the walls and densities where the plain version puts
+    them, at walkers past every wall and at a LogNormal's x <= 0."""
+    spec = synthetic.flagship_prior_spec() if prior == "spec" else _mv_gaussian()
+    w = _walker(cuda, 1000, dtype, 0.05, log_prior=spec)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    assert post.rest == () and len(post.densities) == (3 if prior == "spec" else 1)
+    pos = synthetic.prior_edge_walkers(w.state.position, w.spec.keys)
+    before = tlk.fused_posterior.launches
+    got = tlk.fused_posterior(pos, post)
+    assert tlk.fused_posterior.launches == before + 1
+    want = tlk.fused_posterior_plain(pos, post)
+    assert tlk.posterior_rel_err(got, want, post) <= rtol
+    assert bool(torch.isfinite(got).all())
+    # the walkers past a wall are where the plain version puts them
+    assert bool(torch.equal(got < -1e4, want < -1e4))
+
+
+@pytest.mark.parametrize("prior", ["spec", "mv_gaussian"])
+def test_chunk_kernel_named_prior_matches_plain(cuda, prior):
+    """A 200-step chunk with the named prior's table against the plain
+    stepper (chunk_diff's gates), from the generating parameters as the
+    other chunk checks start.  Walkers past a wall or at the LogNormal's
+    x <= 0 are held by kernel 1's check, at fixed points: in a chunk they
+    move where the posterior is so steep that float32 rounding apart
+    (expf against torch's exp in the reference's wall ``-1e10 (exp(1e-5
+    d) - 1)``, good to ~1e-3 of itself just past an edge; the sums' order)
+    reaches 1.6e-4 to 2.7e-4 of it on an H100."""
+    spec = synthetic.flagship_prior_spec() if prior == "spec" else _mv_gaussian()
+    w = _walker(cuda, 4096, torch.float32, 1e-3, log_prior=spec)
+    assert tck.chunk_coverage(w.terms, w.spec, w.config, 4096, torch.float32) is None
+    ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 4096, torch.float32)
+    st = w.state
+    L = synthetic.dense_l(3e-3 * np.asarray(list(FLAGSHIP.values()))).to(cuda)
+    args = (st.position, st.logprob, st.best_position, st.best_logprob, L, 1000, 0.0,
+            torch.tensor([7], dtype=torch.int32, device=cuda))
+    got = tck.chunk_rwm(ck, *args)
+    ref = tck.chunk_rwm_plain(ck, *args)
+    _agree(got, ref, ck.post)
+
+
+def test_swap_data_rebuilds_kernel_1_on_the_new_data(cuda):
+    """The walker keeps kernel 1's closure (its data packed); swap_data
+    drops it, and the next evaluation launches kernel 1 on the new data."""
+    from lisp_mcmc_torch.data import Dataset
+
+    w = _walker(cuda, 1024, torch.float32, 0.02,
+                config=tfit.FitConfig(posterior_impl="kernel"))
+    old = w._batched_posterior()
+    x = np.linspace(2000.0, 3600.0, 334)
+    p = {k: torch.tensor(v, dtype=torch.float64) for k, v in FLAGSHIP.items()}
+    p["x0"] = p["x0"] + 40.0
+    y = lorder_mixed_bg(torch.tensor(x), p).numpy()
+    w.swap_data([Dataset.create(x, y, 1e-7, dtype=torch.float32, device=cuda)])
+    new = w._batched_posterior()
+    assert new is not old
+    pos = w.state.position
+    before = tlk.fused_posterior.launches
+    got = new(pos)
+    assert tlk.fused_posterior.launches == before + 1
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    assert tlk.posterior_rel_err(got, w._eval_batch(pos), post) <= 1e-4
+    assert tlk.posterior_rel_err(old(pos), w._eval_batch(pos), post) > 1e-2
 
 
 _LIKELIHOODS = {"normal": tfit.log_likelihood_normal,

@@ -129,7 +129,7 @@ def test_dataset_cached_fields_match(source):
 
 def test_param_spec_roundtrip():
     params = {":scale": 1e-5, "x0": 2200.0, "mix": 0.9}
-    t_spec, t_vec = tfit.normalize_params(params)
+    t_spec, t_vec = tfit.normalize_params(params, device="cpu")
     j_spec, j_vec = jparams.normalize_params(params)
     assert t_spec.keys == j_spec.keys == ("scale", "x0", "mix")
     np.testing.assert_array_equal(t_vec.numpy(), np.asarray(j_vec))
@@ -251,3 +251,17 @@ def test_covariances_and_haario_match():
                                               m_count))
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
     assert tlin.haario_scale(6) == jlin.haario_scale(6)
+
+
+def test_dataset_and_params_default_to_the_gpu(monkeypatch):
+    """``Dataset.create`` and ``normalize_params`` resolve ``device=None``
+    to the GPU, as every entry point does, so without one they raise;
+    ``device="cpu"`` runs them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.linspace(0.0, 1.0, 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDataset.create(x, x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfit.normalize_params({"a": 1.0})
+    assert TDataset.create(x, x, device="cpu").device.type == "cpu"
+    assert tfit.normalize_params({"a": 1.0}, device="cpu")[1].device.type == "cpu"
