@@ -111,15 +111,37 @@ an H100) and the CUDA toolkit.  It
     ``unit_cube_view`` of the journey's walker, its posterior identity
     on 1024 walkers (1e-5) and, after ``adaptive_steps(2000,
     temperature=1)``, its theta-image's median x0 within 1 % of the fit's;
-22. prints the ``kernels`` summary line (each kernel's time, launches on
+22. ``batched_nv``: a 32 x 32 scan grid of NV spectra
+    (``synthetic.nv_scan_grid``) as one ``nv.BatchedNVFit`` of 128
+    walkers a spectrum (W = 131072, float32) on the plain batched
+    posterior (checked: no kernel launches, by design), the nv phase's
+    40000-step anneal, then ``sampling_steps`` with stretch (200 steps)
+    and mala (50) on the same batch and ``laplace_per_dataset``; gates
+    every spectrum's mu1, mu2 and field offset within 0.5 MHz, its
+    acceptance over 1000 steps after the anneal in 0.2-0.4, finite states,
+    positive-definite Laplace covariances; reports ms a step,
+    chain-steps/sec, the device's busy share (two profiled chunks), peak
+    memory and the per-spectrum ``convergence()`` failures (not gated);
+23. ``evidence``: ``synthetic.line_evidence_case`` (a line under a box
+    prior, log Z in closed form) at W = 131072, float32:
+    ``log_evidence(n_steps=16000, rungs=16, t_max=1e4)`` (the line twin of
+    kernel 1 once a ladder step; gates the JAX test's 0.25 / 0.35 / 0.2),
+    ``smc_sample`` on the default path and on ``chunk_kernel`` (kernel 2
+    at each stage's temperature; each within 0.25), ``laplace_approx``
+    (within 0.05), the launch counts of both kernels, kernel 1 against its
+    plain version on the ladder's ensemble and kernel 2 on the SMC
+    particles at a stage temperature (T = 10);
+24. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
     width, with its launches on the ensemble journeys, at the rescue's
-    W/2, with its launches on the gradient journeys, and with the named
-    prior, with its launches on the named-prior journey; kernel 2 with the
-    named prior, with its launches on its chunk-kernel journey; kernel 1's
-    rows with the kernel-only ms and the plan), the card line and, last,
-    ``{"ok": true, "device": {...}}``.
+    W/2, with its launches on the gradient journeys, with the named
+    prior, with its launches on the named-prior journey, and the line
+    twin with its launches on the evidence journeys; kernel 2 with the
+    named prior, with its launches on its chunk-kernel journey, and at an
+    SMC stage's temperature, with its launches on the SMC journey; kernel
+    1's rows with the kernel-only ms and the plan), the card line and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without the last line; it also refuses to run without a
@@ -176,6 +198,7 @@ NV_TOL_MHZ = 0.5
 N_TILED = 1500
 RTOL = {"float32": 1e-4, "float64": 1e-9}   # a fused kernel against its plain version
 OUT = {"phases": []}
+T_START = time.perf_counter()     # each emitted line carries its time since this
 
 
 class SmokeFailure(RuntimeError):
@@ -188,6 +211,7 @@ def check(cond, msg):
 
 
 def emit(obj):
+    obj["at_s"] = time.perf_counter() - T_START
     OUT["phases"].append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -554,10 +578,11 @@ TRACE_RTOL = 1e-4
 TRACE_LAST_RTOL = 1e-5
 
 
-def _chunk_check(ck, state, L, what, dense_l=True):
+def _chunk_check(ck, state, L, what, dense_l=True, temp=0.0):
     """One 200-step chunk of the kernel against its plain version from the
     same state, L (dense: ``synthetic.dense_l``) and seed at anneal step
-    1000; returns the measurements (``chunk_kernel.chunk_diff``).
+    1000 (``temp`` > 0: at that temperature, the override an SMC stage
+    gives); returns the measurements (``chunk_kernel.chunk_diff``).
 
     A walker agrees when its accept count and its final position match
     (rtol 1e-4): one near-tie flip, from a 1-ulp difference of logf/cosf,
@@ -578,7 +603,7 @@ def _chunk_check(ck, state, L, what, dense_l=True):
 
     seed = torch.tensor([20240607], dtype=torch.int32, device=DEVICE)
     args = (state.position, state.logprob, state.best_position, state.best_logprob,
-            L, 1000, 0.0, seed)
+            L, 1000, temp, seed)
     got = chunk_rwm(ck, *args)
     ref = chunk_rwm_plain(ck, *args)
     torch.cuda.synchronize()
@@ -1905,6 +1930,356 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
     ]
 
 
+# The batched NV journey: a 32 x 32 scan grid of spectra
+# (synthetic.nv_scan_grid) as one BatchedNVFit of 128 walkers a spectrum
+# (W = 131072), float32, on the plain batched posterior (neither kernel
+# reads a per-walker dataset); the anneal is the nv phase's 40000 steps.
+# Gates, fixed before the first chip run: each spectrum's best mu1, mu2
+# and field offset within NV_TOL_MHZ of its truth; each spectrum's
+# acceptance in 0.2-0.4 over 1000 steps (5 chunks at the cold finish's
+# settings) after the fit; finite states after stretch and mala; a
+# finite, positive-definite Laplace covariance with no clamped eigenvalue
+# per spectrum; no kernel launch.  Read right after the anneal, that
+# acceptance had 48 of 1024 spectra above 0.4 (max 0.54, on an H100):
+# the schedule's cold finish starts at T = 9.7 (the cosine
+# of mcmc-fitting.lisp:878 at step 38000 of 40000), so each group's L,
+# tuned at T ~ 10, collapses the acceptance at T = 1, takes the x0.1
+# rescale and climbs back by x1.9 a chunk, and in 2000 steps without
+# refresh some groups are still climbing.  The fit now samples at T = 1
+# for 4000 adaptive steps after the anneal (sampling_steps with rwm: ten
+# chunks with the in-band refresh, then the ten-chunk cold finish), the
+# recipe after an anneal, and the gate reads the acceptance after that;
+# the acceptance right after the anneal is reported beside it.
+BATCHED_GRID = (32, 32)
+BATCHED_WALKERS = 128
+N_BATCHED = 40000
+N_BATCHED_COLD = 4000
+N_BATCHED_STRETCH = 200
+N_BATCHED_MALA = 50
+BATCHED_ACCEPT_STEPS = 1000
+BATCHED_PROFILE_STEPS = 20
+# The per-dataset verdict reads the last 2000 steps (the 4 retained
+# history walkers of each spectrum); over 1024 blocks it is host work,
+# 85 s over the last 10000 steps on an H100 machine's host.
+BATCHED_CONVERGENCE_TAKE = 2000
+
+
+def phase_batched_nv(counters):
+    """``BatchedNVFit`` on a 32 x 32 scan grid: the anneal (ms a step,
+    chain-steps/sec, the device's busy share from two profiled chunks),
+    the per-spectrum gates, short stretch and mala runs on the same batch
+    (ms a step), ``laplace_per_dataset``, ``convergence`` (failures
+    counted, not gated), peak memory and the launches (none)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import nv, synthetic
+
+    t_phase = time.perf_counter()
+    rows, cols = BATCHED_GRID
+    x, ys, truths = synthetic.nv_scan_grid(rows, cols, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    fit = nv.BatchedNVFit([(x, y) for y in ys], walkers_per_spectrum=BATCHED_WALKERS,
+                          seed=0, dtype=torch.float32, device=DEVICE,
+                          config=mfit.FitConfig(auto=None))
+    W = fit.n_walkers
+    check(W == W_FLAGSHIP, f"batched_nv: W = {W}")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit.adaptive_steps(N_BATCHED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"batched_nv: a kernel launched on the plain batched path ({launches})")
+    out = {"phase": "batched_nv", "grid": [rows, cols], "W": W, "N": int(x.shape[0]),
+           "steps": N_BATCHED, "seconds": secs, "ms_per_step": 1e3 * secs / N_BATCHED,
+           "chain_steps_per_sec": W * N_BATCHED / secs, "launches": launches}
+
+    def group_acceptance():
+        """Each spectrum's acceptance over BATCHED_ACCEPT_STEPS at the cold
+        finish's settings (adaptation on, no refresh, T = 1)."""
+        runner = fit._runner(with_history=False)
+        st, acc = fit.state, []
+        for _ in range(BATCHED_ACCEPT_STEPS // fit.config.chunk_size):
+            st, o = runner(st, True, False, True, generator=fit.generator)
+            acc.append(o["group_accept"])
+        fit.state = st
+        a = torch.stack(acc).mean(0).cpu().numpy()
+        return a, {"min": float(a.min()), "max": float(a.max()), "mean": float(a.mean()),
+                   "outside_band": int(((a < 0.2) | (a > 0.4)).sum())}
+
+    out["acceptance_after_anneal"] = group_acceptance()[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit.sampling_steps(N_BATCHED_COLD, kernel="rwm")
+    torch.cuda.synchronize()
+    out["cold"] = {"steps": N_BATCHED_COLD, "seconds": time.perf_counter() - t0}
+    out["acceptance"] = group_acceptance()[1]
+    # the busy share over 20-step chunks: a 200-step chunk launches ~34000
+    # kernels, and profiling two of them took ~40 s of host time (H100 host)
+    prev = fit.config
+    fit.config = dataclasses.replace(prev, chunk_size=BATCHED_PROFILE_STEPS)
+    prof = _profile_chunks("batched_nv_profile", fit._runner(with_history=True), fit.state,
+                           fit.generator, args=(True, False, True),
+                           steps=BATCHED_PROFILE_STEPS)
+    fit.config = prev
+    out["device_busy_share"] = prof["device_busy_share"]
+    out["chunk_wall_ms"] = prof["chunk_wall_ms"]
+
+    best = fit.best_params_per_spectrum()
+    offsets = fit.field_offsets()
+    errs = {k: np.abs([b[k] - t[k] for b, t in zip(best, truths)]) for k in ("mu1", "mu2")}
+    errs["field_offset"] = np.abs([o - (t["mu2"] - t["mu1"]) / 2 / 2.8
+                                   for o, t in zip(offsets, truths)])
+    out["max_err_mhz"] = {k: float(v.max()) for k, v in errs.items()}
+
+    t0 = time.perf_counter()
+    conv = fit.convergence(take=BATCHED_CONVERGENCE_TAKE)
+    out["convergence"] = {"ok": conv["ok"], "failures": len(conv["failures"]),
+                          "spectra_failing": sum(not v["ok"] for v in conv["per_dataset"]),
+                          "take": BATCHED_CONVERGENCE_TAKE,
+                          "seconds": time.perf_counter() - t0}
+
+    # the same batch: short stretch and mala runs
+    for kind, n in (("stretch", N_BATCHED_STRETCH), ("mala", N_BATCHED_MALA)):
+        prev = fit.config
+        fit.config = dataclasses.replace(prev, chunk_size=min(prev.chunk_size, n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit.sampling_steps(n, kernel=kind)
+        torch.cuda.synchronize()
+        ksecs = time.perf_counter() - t0
+        fit.config = prev
+        finite = bool(torch.isfinite(fit.state.position).all()
+                      and torch.isfinite(fit.state.logprob).all())
+        out[kind] = {"steps": n, "seconds": ksecs, "ms_per_step": 1e3 * ksecs / n,
+                     "acceptance": fit.acceptance(), "finite": finite}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lap = fit.laplace_per_dataset()
+    torch.cuda.synchronize()
+    pd = [bool(np.all(np.isfinite(r.cov))) and bool(np.all(np.linalg.eigvalsh(r.cov) > 0))
+          for r in lap]
+    out["laplace"] = {"seconds": time.perf_counter() - t0, "positive_definite": sum(pd),
+                      "clamped": sum(r.n_clamped for r in lap),
+                      "median_sd_mu1": float(np.median([r.sd["mu1"] for r in lap]))}
+    out["launches_after_anneal"] = {c.__name__: c.launches for c in counters}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    for k, v in errs.items():
+        bad = np.flatnonzero(v > NV_TOL_MHZ)
+        check(bad.size == 0, f"batched_nv: {k} off by more than {NV_TOL_MHZ} MHz at "
+              f"spectra {bad[:8].tolist()} (max {float(v.max())})")
+    check(out["acceptance"]["outside_band"] == 0,
+          f"batched_nv: {out['acceptance']['outside_band']} spectra with acceptance "
+          f"outside 0.2-0.4 ({out['acceptance']})")
+    for kind in ("stretch", "mala"):
+        check(out[kind]["finite"], f"batched_nv: a non-finite state after {kind}")
+    check(sum(pd) == len(lap) and out["laplace"]["clamped"] == 0,
+          f"batched_nv: Laplace covariances not positive definite ({out['laplace']})")
+    check(all(v == 0 for v in out["launches_after_anneal"].values()),
+          f"batched_nv: a kernel launched ({out['launches_after_anneal']})")
+    return out
+
+
+# The evidence journeys (synthetic.line_evidence_case: a line of 334
+# points, sigma = 2, box m in (-4, 8), b in (-3, 5), log Z in closed
+# form), W = 131072, float32, the line twin of kernel 1 on the default
+# path.  Gates, fixed before the first chip run (the JAX package's
+# tests/test_evidence.py:39 gates for the ladder): |log_z - closed form|
+# <= 0.25, |log_z_ti - log_z| <= 0.35, error < 0.2; each SMC run's log_z
+# and the Laplace log_z within 0.25 and 0.05 of the closed form; kernel-1
+# launches equal to the steps' evaluations plus the probe and the
+# closure (ladder) or the box draws (SMC); kernel-2 launches equal to the
+# chunks the SMC stages ran.
+EVIDENCE_LADDER = {"n_steps": 16000, "rungs": 16, "t_max": 1e4}
+EVIDENCE_SMC_MOVE = 400
+EVIDENCE_TOL = {"ladder": 0.25, "ti": 0.35, "error": 0.2, "smc": 0.25, "laplace": 0.05}
+# the kernel-2 check's temperature: a late SMC stage's (T = 1/beta; the
+# stages of this case run at T ~ 145, 32, 9.4, 2.8, 1 on the CPU at W =
+# 4096, acceptance 0.82 at T = 10 there)
+EVIDENCE_CHUNK_TEMP = 10.0
+
+
+def _line_ti_bias(case, betas):
+    """The trapezoid's own error on the ladder ``betas``: TI (with the exact
+    [0, beta_min] segment) minus the exact log Z, both by quadrature of
+    the line's likelihood on a 1201 x 801 grid over the box (float64)."""
+    import math
+    import numpy as np
+
+    x, y, s = case["x"], case["y"], case["sigma"]
+    (m0, m1), (b0, b1) = case["bounds"]["m"], case["bounds"]["b"]
+    m, b = np.meshgrid(np.linspace(m0, m1, 1201), np.linspace(b0, b1, 801), indexing="ij")
+    n = x.size
+    rss = ((y * y).sum() - 2 * m * (x * y).sum() - 2 * b * y.sum() + m * m * (x * x).sum()
+           + 2 * m * b * x.sum() + n * b * b)
+    log_l = -0.5 * n * math.log(2 * math.pi * s * s) - 0.5 * rss / s ** 2
+    top = log_l.max()
+
+    def log_z(beta):
+        return float(np.log(np.exp(beta * (log_l - top)).mean()) + beta * top)
+
+    def mean_log_l(beta):
+        w = np.exp(beta * (log_l - top))
+        return float((w * log_l).sum() / w.sum())
+
+    bs = np.asarray(betas, np.float64)[::-1]
+    trap = getattr(np, "trapezoid", None) or np.trapz
+    ti = float(trap([mean_log_l(v) for v in bs], bs)) + log_z(bs[0])
+    return ti - log_z(1.0)
+
+
+def phase_evidence(ceilings, counters, ptxas):
+    """The evidence layer on the line case: ``log_evidence`` (the tempered
+    ladder, kernel 1 once a step), ``smc_sample`` on the default path and
+    on ``posterior_impl="chunk_kernel"`` (kernel 2 at each stage's
+    temperature), ``laplace_approx``; kernel 1 and kernel 2 against their
+    plain versions on those paths' own inputs; returns the kernels line's
+    two rows."""
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import models, synthetic
+    from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
+                                                  chunk_census)
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+
+    t_phase = time.perf_counter()
+    case = synthetic.line_evidence_case()
+    truth = case["log_z"]
+
+    def walker(**cfg):
+        return mfit.walker_create(
+            function=models.line, data=(case["x"], case["y"]), params=case["truth"],
+            data_error=case["sigma"], log_prior=mfit.make_bounds_prior(case["bounds"]),
+            n_walkers=W_FLAGSHIP, seed=0, walker_jitter=0.05, dtype=torch.float32,
+            device=DEVICE, config=mfit.FitConfig(**cfg))
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    out = {"phase": "evidence", "W": W_FLAGSHIP, "N": int(case["x"].size),
+           "closed_form_log_z": truth}
+
+    # the ladder
+    w = walker()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = w.log_evidence(**EVIDENCE_LADDER)
+    torch.cuda.synchronize()
+    ladder = {"seconds": time.perf_counter() - t0, "log_z": res.log_z,
+              "log_z_ti": res.log_z_ti, "error": res.error, "tail": res.tail,
+              "posterior_evals": w.posterior_evals, "launches": launches(),
+              "ti_trapezoid_bias": _line_ti_bias(case, res.betas),
+              "min_swap_rate": w.swap_rates()["min_rate"]}
+    out["ladder"] = ladder
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    check(post is not None and post.rest == (), "evidence: the line fit is not on kernel 1")
+    pos = w.state.position
+    rel, abs_err = _fused_check(post, pos, RTOL["float32"], "evidence ladder")
+    one = _kernel1(pos, post, ptxas)
+    kernel1 = {"max_rel_err": rel, "max_abs_err": abs_err, **one,
+               "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 5),
+               **_bounds(posterior_census(post), 1, fused_bytes(post, W_FLAGSHIP), ceilings)}
+    out["kernel1"] = kernel1
+
+    # SMC on the default path, then on the chunk kernel
+    smc = {}
+    for impl in ("auto", "chunk_kernel"):
+        w2 = walker(posterior_impl=impl)
+        stages = []
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = w2.smc_sample(case["bounds"], n_move=EVIDENCE_SMC_MOVE,
+                          on_stage=lambda info: stages.append(info) and False)
+        torch.cuda.synchronize()
+        smc[impl] = {"seconds": time.perf_counter() - t0, "log_z": r.log_z,
+                     "stages": r.n_stages, "chunks": sum(i["chunks"] for i in stages),
+                     "final_acceptance": float(r.acceptance[-1]),
+                     "posterior_evals": w2.posterior_evals, "launches": launches()}
+        if impl == "auto":
+            lap_walker = w2
+    out["smc"] = smc
+
+    # kernel 2 at an SMC stage's temperature, from the chunk-kernel run's
+    # particles, with a dense L of the posterior's correlation sign
+    ck = build_chunk_kernel(w2.terms, w2.spec, w2.config, W_FLAGSHIP, torch.float32)
+    check(ck is not None, "evidence: the line fit is outside the chunk kernel's scope")
+    L = torch.linalg.cholesky(torch.tensor([[0.09, -0.036], [-0.036, 0.04]])).to(DEVICE)
+    chunk = _chunk_check(ck, w2.state, L, "evidence chunk", temp=EVIDENCE_CHUNK_TEMP)
+    chunk.update(temperature=EVIDENCE_CHUNK_TEMP, launch=_chunk_launch(ck, ptxas),
+                 **_bounds(chunk_census(posterior_census(ck.post), ck.d), ck.chunk,
+                           chunk_bytes(ck.post, W_FLAGSHIP, ck.chunk), ceilings))
+    out["chunk"] = chunk
+
+    # Laplace at the default-path SMC run's best point
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lap = lap_walker.laplace_approx(bounds=case["bounds"])
+    out["laplace"] = {"seconds": time.perf_counter() - t0, "log_z": lap.log_z,
+                      "n_clamped": lap.n_clamped, "sd": lap.sd,
+                      "sd_closed_form": dict(zip(("m", "b"), np.sqrt(np.diag(case["cov"]))))}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    tol = EVIDENCE_TOL
+    check(abs(res.log_z - truth) <= tol["ladder"],
+          f"evidence: ladder log_z {res.log_z} not within {tol['ladder']} of {truth}")
+    check(abs(res.log_z_ti - res.log_z) <= tol["ti"],
+          f"evidence: TI {res.log_z_ti} not within {tol['ti']} of the stepping stones' "
+          f"{res.log_z}")
+    check(res.error < tol["error"], f"evidence: ladder error {res.error} >= {tol['error']}")
+    steps = EVIDENCE_LADDER["n_steps"]
+    check(w.posterior_evals == steps and ladder["launches"]["fused_posterior"] == steps + 2,
+          f"evidence: {ladder['launches']['fused_posterior']} kernel-1 launches for "
+          f"{steps} ladder steps (+ the probe and the closure)")
+    for impl, r in smc.items():
+        check(abs(r["log_z"] - truth) <= tol["smc"],
+              f"evidence: smc ({impl}) log_z {r['log_z']} not within {tol['smc']} of {truth}")
+    a, k = smc["auto"], smc["chunk_kernel"]
+    check(a["launches"]["fused_posterior"] == a["posterior_evals"] + 2
+          and a["launches"]["chunk_rwm"] == 0,
+          f"evidence: smc default path launched {a['launches']} for "
+          f"{a['posterior_evals']} move evaluations (+ the probe and the box draws)")
+    check(k["launches"]["chunk_rwm"] == k["chunks"] and k["chunks"] > 0
+          and k["launches"]["fused_posterior"] == 2,
+          f"evidence: smc on the chunk kernel launched {k['launches']} for "
+          f"{k['chunks']} chunks (kernel 1: the probe and the box draws)")
+    check(lap.log_z is not None and abs(lap.log_z - truth) <= tol["laplace"],
+          f"evidence: Laplace log_z {lap.log_z} not within {tol['laplace']} of {truth}")
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "fused_posterior_line_evidence", **common,
+         "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+         "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
+         "launches": ladder["launches"]["fused_posterior"]
+         + a["launches"]["fused_posterior"],
+         **{k: kernel1[k] for k in ("max_abs_err", "ms", "kernel_ms", "plan", "plain_ms",
+                                    "bound_ms", "bound_by", "opmix_bound_ms")}},
+        {"name": "chunk_rwm_smc", **common,
+         "source": "lisp_mcmc_torch/csrc/chunk_rwm.cu",
+         "replaces": "lisp_mcmc_tpu/ops/chunk_pallas.py:95",
+         "launches": k["launches"]["chunk_rwm"], "max_abs_err": chunk["logprob_max_abs_err"],
+         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
+         **{k2: chunk[k2] for k2 in ("bound_ms", "bound_by", "opmix_bound_ms")},
+         "temperature": EVIDENCE_CHUNK_TEMP, "registers": chunk["launch"]["registers"],
+         "threads": chunk["launch"]["threads"],
+         "blocks_per_sm": chunk["launch"]["blocks_per_sm"], "waves": chunk["launch"]["waves"]},
+    ]
+
+
 def _slice_noise(W, steps, cfg, generator):
     """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
     G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
@@ -2062,6 +2437,8 @@ def main():
     phase_blocked(counters)
     prior_rows = phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen)
     del global_walker
+    phase_batched_nv(counters)
+    evidence_rows = phase_evidence(ceilings, counters, ptxas)
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -2081,6 +2458,9 @@ def main():
     kernels.append(rescue_row)
     # kernel 1 and kernel 2 with the flagship's named prior as a table
     kernels.extend(prior_rows)
+    # kernel 1 (the line twin) on the evidence journeys, kernel 2 on the
+    # SMC stages
+    kernels.extend(evidence_rows)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

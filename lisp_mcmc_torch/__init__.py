@@ -5,7 +5,9 @@ tensor code is PyTorch; the two TPU kernels of the main path (every zoo
 model, any number of terms), and the roofline's ceiling probe
 (``roofline.py``), are CUDA C++ written for Hopper (``csrc/``), built
 with ``nvcc`` at first use.  A named prior (``PriorSpec``,
-``MVGaussian``) runs inside both kernels as a declared table.
+``MVGaussian``) runs inside both kernels as a declared table.  Batched
+walker sets (``BatchedFit``, ``BatchedNVFit``) and the evidence layer
+(``log_evidence``, ``smc_sample``, ``laplace_approx``) are ported too.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -19,9 +21,12 @@ entry points run on the GPU unless ``device="cpu"`` is passed.
 """
 
 from . import control, diagnostics, models, nv, stats, utils
+from .batched import BatchedFit
 from .control import clear_stop, estop, request_stop, stop_requested
 from .data import Dataset, clean_data, clean_data_error, create_walker_data
 from .device import resolve_device
+from .evidence import (EvidenceResult, LaplaceResult, laplace_approx, log_bayes_factor,
+                       log_evidence)
 from .diagnostics import (convergence, convergence_per_dataset, ess_from_history,
                           ess_per_param, mcse_per_param, metrics, rank_rhat_per_param,
                           rhat_from_history, rhat_per_param, summary, tail_ess_per_param,
@@ -32,6 +37,7 @@ from .expressions import (eval_expression, expression_credible_interval,
 from .fit import Walker, make_adam_sgdr_runner, mcmc_fit, unit_cube_view, walker_create
 from .io import file_specs, get_filename, read_file_data
 from .kernel import FitConfig, WalkerState, init_state, temperature_schedule
+from .nv import BatchedNVFit, fit_nv_spectra_batched
 from .likelihoods import (create_log_likelihood_function, log_factorial,
                           log_likelihood_normal, log_likelihood_normal_cutoff,
                           log_likelihood_normal_weighted, log_likelihood_poisson, log_normal,
@@ -42,6 +48,7 @@ from .params import ParamSpec, map_params, normalize_params, reduce_params, scal
 from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_prior_spec,
                      bound_penalty, combine_priors, constraint_penalty, log_prior_flat,
                      make_bounds_prior, prior_bounds, resolve_prior_spec, unit_cube_wall)
+from .smc import SMCResult, seed_prior_box, smc_sample
 from .walker_set import WalkerSet
 
 __all__ = [
@@ -67,4 +74,7 @@ __all__ = [
     "make_bounds_prior", "prior_bounds", "Uniform", "Gaussian", "LogNormal",
     "MVGaussian", "PriorSpec", "as_prior_spec", "resolve_prior_spec",
     "unit_cube_wall", "WalkerSet",
+    "BatchedFit", "BatchedNVFit", "fit_nv_spectra_batched",
+    "EvidenceResult", "LaplaceResult", "laplace_approx", "log_bayes_factor",
+    "log_evidence", "SMCResult", "seed_prior_box", "smc_sample",
 ]

@@ -18,7 +18,8 @@ from .data import Dataset
 from .device import resolve_device
 from .kernel import WalkerState
 
-__all__ = ["dataset_from_numpy", "state_from_numpy", "walker_from_numpy"]
+__all__ = ["dataset_from_numpy", "state_from_numpy", "walker_from_numpy",
+           "batched_from_numpy"]
 
 _DATASET_CACHES = ("inv_sigma", "log_norm_const", "log_norm_const_point",
                    "log_fact_y")
@@ -137,3 +138,39 @@ def walker_from_numpy(arrays: Mapping, datasets=None, **create_kwargs):
     w.group_ids, w.n_groups = group_ids, n_groups
     w.generator.manual_seed(seed)
     return w
+
+
+def batched_from_numpy(fit, arrays: Mapping, datasets=None):
+    """Install a batch's state in a port :class:`~lisp_mcmc_torch.BatchedFit`
+    (or ``BatchedNVFit``) built on the same data, and return it.
+
+    ``arrays``: :func:`state_from_numpy`'s arrays with one L per dataset,
+    ``group_ids`` (each walker's dataset, in contiguous blocks) and
+    optionally ``aux`` (the JAX batch's per-walker dataset index) and
+    ``keys``; each must match the port batch's.  ``datasets``: optionally
+    one :func:`dataset_from_numpy` field mapping per dataset (a JAX
+    batch's, padded to its lane-aligned length), installed in place of the
+    port's (``BatchedFit._set_datasets``).  The random streams differ by
+    design: the state's key seeds the walker's generator.
+    """
+    keys = arrays.get("keys")
+    if keys is not None and tuple(keys) != fit.spec.keys:
+        raise ValueError(f"batched_from_numpy: the state's columns are {tuple(keys)}, "
+                         f"the batch's {fit.spec.keys}")
+    gids = np.asarray(arrays["group_ids"], np.int64)
+    if not np.array_equal(gids, fit.group_ids):
+        raise ValueError("batched_from_numpy: group_ids differ from the batch's "
+                         f"({fit.n_datasets} blocks of {fit.walkers_per_dataset})")
+    aux = arrays.get("aux")
+    if aux is not None and not np.array_equal(np.asarray(aux), gids):
+        raise ValueError("batched_from_numpy: aux is not each walker's dataset index")
+    state, seed = state_from_numpy(arrays, dtype=fit.dtype, device=fit.device)
+    if state.l_matrix.shape[0] != fit.n_datasets:
+        raise ValueError(f"batched_from_numpy: {state.l_matrix.shape[0]} adaptation "
+                         f"groups for {fit.n_datasets} datasets")
+    if datasets is not None:
+        fit._set_datasets([dataset_from_numpy(f, dtype=fit.dtype, device=fit.device)
+                          for f in datasets])
+    fit.state = state
+    fit.generator.manual_seed(seed)
+    return fit

@@ -10,9 +10,11 @@ Reference behavior being rebuilt (mcmc-fitting.lisp):
 
 A :class:`Dataset` holds tensors on the fit's device with an explicit
 mask, so every likelihood reduction is a masked sum.  The JAX package
-pads to a multiple of 128 (a TPU lane layout); the port does not pad, and
-a padded dataset carried over from the JAX package (``convert.py``) stays
-exact because its mask zeroes the padding.
+pads to a multiple of 128 (a TPU lane layout); the port pads only to a
+requested ``min_len`` (a ragged batch of datasets stacked to one shape,
+``batched.py``), and a padded dataset, its own or one carried over from
+the JAX package (``convert.py``), stays exact because its mask zeroes
+the padding.
 """
 
 from __future__ import annotations
@@ -71,10 +73,12 @@ class Dataset:
         return self.y.device
 
     @classmethod
-    def create(cls, x, y, sigma=None, dtype=torch.float64, device=None):
+    def create(cls, x, y, sigma=None, dtype=torch.float64, device=None, min_len: int = 0):
         """Validate and move to ``device``: ``None`` means the GPU
         (``device.resolve_device``: it raises without one); pass
-        ``device="cpu"`` for the CPU."""
+        ``device="cpu"`` for the CPU.  ``min_len``: pad to at least this
+        many points (JAX data.py:84-89), repeating the last x and y, with
+        sigma 1 and mask 0, so every reduction stays exact."""
         device = resolve_device(device)
         x = np.asarray(x, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64)
@@ -98,10 +102,18 @@ class Dataset:
                 f"data_error must be positive everywhere; got "
                 f"{sigma[bad]} at point {bad}")
 
+        p = max(n, int(min_len))
+        mask = np.zeros(p)
+        mask[:n] = 1.0
+        if p > n:
+            x = np.pad(x, [(0, p - n)] + [(0, 0)] * (x.ndim - 1), mode="edge")
+            y = np.pad(y, (0, p - n), mode="edge")
+            sigma = np.pad(sigma, (0, p - n), mode="constant", constant_values=1.0)
+
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
-        return cls(x=t(x), y=t(y), sigma=t(sigma), mask=t(np.ones(n)), n=n)
+        return cls(x=t(x), y=t(y), sigma=t(sigma), mask=t(mask), n=n)
 
 
 def _depth(tree) -> int:

@@ -21,9 +21,10 @@ and the JAX package's adaptation groups (``group_ids``, ``n_groups``),
 demc, slice, mala, hmc, chees) and ``chees_trajectory``, ``optimize``
 (multi-start Adam with warm restarts, :func:`make_adam_sgdr_runner`),
 custom posteriors (``log_posterior=``, ``batched_log_posterior=``),
-named priors (a ``priors.PriorSpec`` or ``MVGaussian`` as ``log_prior``)
-and :func:`unit_cube_view`.  Per-walker ``aux`` data (``batched.py``) is
-not ported yet.
+named priors (a ``priors.PriorSpec`` or ``MVGaussian`` as ``log_prior``),
+:func:`unit_cube_view`, per-walker ``aux`` data (the batched walker sets
+of ``batched.py``) and the evidence verbs (``log_evidence``,
+``smc_sample``, ``laplace_approx``).
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -157,6 +158,27 @@ def history_block_columns(walker, width: int) -> list[np.ndarray]:
     return [np.nonzero(g == s)[0] for s in range(int(walker.n_groups))]
 
 
+def _aux_take(aux, idx):
+    """Walkers ``idx`` of per-walker ``aux`` data: a tensor, or a dict of
+    tensors, each with the walkers on its leading axis."""
+    if isinstance(aux, dict):
+        return {k: v[idx] for k, v in aux.items()}
+    return aux[idx]
+
+
+def _aux_on(aux, device, n_walkers: int):
+    """``aux`` as tensors on ``device``, each checked for a leading axis W."""
+    def one(name, a):
+        a = torch.as_tensor(a.detach() if torch.is_tensor(a) else np.asarray(a), device=device)
+        if a.ndim == 0 or a.shape[0] != n_walkers:
+            raise ValueError(f"aux{name} has shape {tuple(a.shape)}; per-walker aux data "
+                             f"needs a leading axis of {n_walkers} walkers")
+        return a
+    if isinstance(aux, dict):
+        return {k: one(f"[{k!r}]", v) for k, v in aux.items()}
+    return one("", aux)
+
+
 def _nonzero_scales(vec):
     """Per-parameter magnitudes with zeros replaced by a small derived
     scale (so no proposal coordinate is permanently stuck)."""
@@ -185,7 +207,8 @@ class Walker:
     ``log_likelihoods``, ``param_trace``, ``covariance_matrix``,
     ``l_matrix_estimate``, ``unique_steps``, ``forward_steps``,
     ``check_for_nonfinite``, ``diagnose_params``, ``with_expression``,
-    ``swap_rates``, ``summary``, ``metrics``, ``convergence``.  Mutation
+    ``swap_rates``, ``summary``, ``metrics``, ``convergence``, and the
+    evidence verbs ``log_evidence``, ``smc_sample``, ``laplace_approx``.  Mutation
     verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
     ``burn_steps``, ``keep_steps``, ``add_steps``, ``delete``, and
     ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.
@@ -195,11 +218,18 @@ class Walker:
 
     A custom posterior replaces the terms' (JAX ``Walker``, fit.py:207-231):
     ``batched_log_posterior(positions (W, d), data) -> (W,)`` wins when
-    given; else ``log_posterior(theta (d,), data) -> ()``, one walker's, is
-    evaluated over the batch by ``torch.func.vmap``.  ``data`` is
-    ``posterior_data``.  Autograd differentiates either (``optimize`` and
-    the gradient samplers).  A custom posterior never runs on the CUDA
-    kernels: ``posterior_impl="kernel"`` or ``"chunk_kernel"`` raises.
+    given, and is taken to need the whole ensemble (the red-black halves
+    and the rescue evaluate a full ensemble with their proposals in the
+    active slots, as the JAX package does); else ``log_posterior(theta
+    (d,), data) -> ()``, one walker's, is evaluated over the batch by
+    ``torch.func.vmap``.  ``data`` is ``posterior_data``.  With ``aux``
+    (a tensor, or a dict of tensors, with the W walkers on the leading
+    axis, moved to the walker's device) the per-walker posterior is
+    ``log_posterior(theta, aux_w, data)``, vmapped over the walkers and
+    their aux; a half-ensemble takes the aux of its own walkers.  Autograd
+    differentiates any of them (``optimize`` and the gradient samplers).
+    A custom posterior or aux data never runs on the CUDA kernels:
+    ``posterior_impl="kernel"`` or ``"chunk_kernel"`` raises, naming which.
     """
 
     def __init__(self, terms: list[_Term], spec: ParamSpec, initial_vector, *,
@@ -208,9 +238,9 @@ class Walker:
                  aux=None, group_ids=None, n_groups: int = 1,
                  log_posterior: Callable | None = None, posterior_data=None,
                  batched_log_posterior: Callable | None = None):
-        if aux is not None:
-            raise NotImplementedError(
-                "per-walker aux data is not ported yet (it waits for batched.py)")
+        if aux is not None and log_posterior is None:
+            raise ValueError("aux= is read by a custom log_posterior(theta, aux_w, data); "
+                             "this walker has none")
         self._custom_log_post = log_posterior
         self._custom_data = posterior_data
         self._custom_batched = batched_log_posterior
@@ -244,11 +274,17 @@ class Walker:
         else:
             vec = initial_vector.reshape(-1).to(**kw)
             position = vec.expand(self.n_walkers, d).clone()
+        self.aux = None if aux is None else _aux_on(aux, self.device, self.n_walkers)
         if walker_jitter > 0:
             noise = torch.randn(position.shape, generator=self.generator, **kw)
             position = position * (1.0 + walker_jitter * noise)
 
         self._log_post = self._build_log_posterior()
+        # Whether the posterior needs the whole ensemble (a batched custom
+        # one), and the evaluation of a subset of walker slots where the
+        # posterior reads per-walker aux (else None: any batch will do).
+        self._whole_batch = batched_log_posterior is not None
+        self._rows_post = self._build_rows_posterior()
         logprob = self._eval_batch(position)
         l0 = self._initial_l_matrix(vec)
         if self.group_ids is not None and self.group_ids.shape != (self.n_walkers,):
@@ -297,6 +333,10 @@ class Walker:
             return lambda positions: batched(positions, data)
         if self._custom_log_post is not None:
             one = self._custom_log_post
+            if self.aux is not None:
+                aux = self.aux
+                with_aux = torch.func.vmap(lambda theta, aux_w: one(theta, aux_w, data))
+                return lambda positions: with_aux(positions, aux)
             vmapped = torch.func.vmap(lambda theta: one(theta, data))
             return lambda positions: vmapped(positions)
         terms, spec = self.terms, self.spec
@@ -311,6 +351,16 @@ class Walker:
             return total
 
         return log_post
+
+    def _build_rows_posterior(self):
+        """``(positions (n, d), rows (n,)) -> (n,)``: the posterior of
+        proposals placed at walker slots ``rows``, each with that walker's
+        aux (JAX kernel.py:515-547, 1761-1771); None without aux."""
+        if self.aux is None or self._whole_batch:
+            return None
+        one, data, aux = self._custom_log_post, self._posterior_data(), self.aux
+        with_aux = torch.func.vmap(lambda theta, aux_w: one(theta, aux_w, data))
+        return lambda positions, rows: with_aux(positions, _aux_take(aux, rows))
 
     def _initial_l_matrix(self, vec):
         """Cold-start proposal: diag of parameter values (mcmc-fitting.lisp:899),
@@ -351,7 +401,14 @@ class Walker:
         return self._fused_posterior_probed(impl)
 
     def _refuse_custom(self, impl: str):
-        """A custom posterior is plain PyTorch: a kernel cannot run it."""
+        """A custom posterior is plain PyTorch, and per-walker aux data is
+        an input neither kernel has: a kernel cannot run either (JAX
+        fit.py:364, 435 keep such fits off Pallas)."""
+        if impl in ("kernel", "chunk_kernel") and self.aux is not None:
+            raise ValueError(
+                f"posterior_impl={impl!r}: the fit is outside the kernels' coverage: "
+                f"{kernel_coverage(self.terms, self.spec, self.aux)}; use "
+                "posterior_impl='auto' or 'plain'")
         if impl in ("kernel", "chunk_kernel"):
             raise ValueError(
                 f"posterior_impl={impl!r}: this walker has a custom posterior "
@@ -411,7 +468,8 @@ class Walker:
             run, run_hist = build_chunk_runner(
                 self._batched_posterior(), self.spec.ndim, cfg,
                 chunk_kernel=chunk, group_ids=self.group_ids, n_groups=self.n_groups,
-                eval_plain=self._log_post)
+                eval_plain=self._log_post, whole_batch=self._whole_batch,
+                eval_rows=self._rows_post)
             self._runner_cache[cache_key] = run_hist if with_history else run
         return self._runner_cache[cache_key]
 
@@ -818,7 +876,7 @@ class Walker:
         pilot's history.  Afterwards the ensemble is one group again with
         the cold rung's L.
         """
-        if self.group_ids is not None:
+        if self.aux is not None or self.group_ids is not None:
             raise ValueError("tempering is unavailable for batched/grouped fits")
         K = int(rungs)
         if K < 2 or self.n_walkers % K:
@@ -885,6 +943,32 @@ class Walker:
         return {"betas": self._swap_betas.copy(), "pair_rates": rates,
                 "min_rate": float(np.nanmin(rates)),
                 "ok": bool(np.nanmin(rates) > 0.05)}
+
+    def log_evidence(self, n_steps: int = 20000, rungs: int = 16, t_max: float = 1e5,
+                     **kwargs):
+        """Marginal-likelihood estimate off the tempering ladder
+        (:func:`evidence.log_evidence`; JAX ``Walker.log_evidence``,
+        fit.py:951-966).  The box path leaves the ensemble spread over the
+        ladder; the named-prior path runs on a u-space view."""
+        from .evidence import log_evidence
+
+        return log_evidence(self, n_steps=n_steps, rungs=rungs, t_max=t_max, **kwargs)
+
+    def smc_sample(self, bounds=None, **kwargs):
+        """Tempered SMC from the prior box (or a named ``prior=``) to the
+        posterior (:func:`smc.smc_sample`; JAX ``Walker.smc_sample``,
+        fit.py:968-975): an ``SMCResult`` with the evidence, the ensemble
+        left posterior-distributed."""
+        from .smc import smc_sample
+
+        return smc_sample(self, bounds, **kwargs)
+
+    def laplace_approx(self, *args, **kwargs):
+        """Curvature covariance and the Laplace evidence at the best step
+        (:func:`evidence.laplace_approx`)."""
+        from .evidence import laplace_approx
+
+        return laplace_approx(self, *args, **kwargs)
 
     def sampling_steps(self, n: int, kernel: str = "mala", **kwargs):
         """Cold sampling phase at T=1 with the given kernel (JAX
@@ -965,9 +1049,13 @@ class Walker:
 
     def diagnose_params(self, params, aux_index: int = 0):
         """The posterior at given params (``walker-diagnose-params``,
-        1200-1204).  ``aux_index`` picks a walker's aux data, which waits
-        for ``batched.py``: without aux it is unused."""
+        1200-1204).  With per-walker aux data (a batched fit),
+        ``aux_index`` picks whose aux (which dataset) to probe with; without
+        aux it is unused."""
         vec = self.spec.flatten(params, dtype=self.dtype, device=self.device)
+        if self.aux is not None:
+            return float(self._custom_log_post(vec, _aux_take(self.aux, aux_index),
+                                               self._posterior_data()))
         return float(self._log_post(vec[None])[0])
 
     def summary(self, take: int | None = None) -> str:
@@ -1192,9 +1280,12 @@ def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
     exterior penalty (``priors.unit_cube_wall``).  The u-ensemble starts
     at the CDF image of the walker's ensemble, clamped off the faces by
     the type's eps.  The view shares the walker's datasets, config (on
-    the plain path, as every custom posterior), dtype, device and groups;
-    stepping it never touches the walker.  It carries ``_unit_cube_spec``
-    and ``_theta_of_u`` (``(W, d)`` u to theta).
+    the plain path, as every custom posterior), dtype, device, groups and
+    per-walker aux (JAX fit.py:1647-1673): it takes any batch where the
+    walker's posterior does, needs the whole ensemble where the walker's
+    does, and evaluates a subset of slots with their own aux where the
+    walker's reads aux.  Stepping it never touches the walker.  It carries
+    ``_unit_cube_spec`` and ``_theta_of_u`` (``(W, d)`` u to theta).
     """
     spec = as_prior_spec(prior_spec)
     keys = walker.spec.keys
@@ -1206,9 +1297,12 @@ def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
     def theta_of_u(u):
         return spec.transform(u, keys)
 
+    def shift(u, th):
+        return -spec.installed_vec(th, keys) + unit_cube_wall(u)
+
     def batched_u(u, data=None):
         th = theta_of_u(u)
-        return base(th) + (-spec.installed_vec(th, keys) + unit_cube_wall(u))
+        return base(th) + shift(u, th)
 
     eps = 1e-12 if walker.dtype == torch.float64 else 1e-6
     u0 = np.clip(_host(spec.inverse(walker.state.position, keys)).astype(np.float64),
@@ -1218,6 +1312,14 @@ def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
                 dtype=walker.dtype, device=walker.device, group_ids=walker.group_ids,
                 n_groups=walker.n_groups, batched_log_posterior=batched_u,
                 posterior_data=walker._posterior_data())
+    uw.aux = walker.aux
+    uw._whole_batch = walker._whole_batch
+    base_rows = walker._rows_post
+    if base_rows is not None:
+        def rows_u(u, rows):
+            th = theta_of_u(u)
+            return base_rows(th, rows) + shift(u, th)
+        uw._rows_post = rows_u
     uw._unit_cube_spec = spec
     uw._theta_of_u = theta_of_u
     return uw

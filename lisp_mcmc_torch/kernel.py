@@ -327,7 +327,8 @@ def _contiguous_block(group_ids, n_groups: int) -> int | None:
 
 def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
                        chunk_kernel=None, group_ids=None, n_groups: int = 1,
-                       eval_plain: Callable | None = None):
+                       eval_plain: Callable | None = None, whole_batch: bool = False,
+                       eval_rows: Callable | None = None):
     """The chunk runners for a batched posterior ``eval_lp((W, d)) -> (W,)``.
 
     Returns ``(run, run_with_history)``; each maps ``(state, adapt_enabled,
@@ -341,6 +342,15 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
     ``eval_lp``).  ``out["posterior_evals"]`` counts the value-only calls
     of ``eval_lp`` in the chunk, ``out["gradient_evals"]`` the
     value-and-gradient evaluations.
+
+    The red-black halves and the rescue's half-rounds evaluate a subset
+    of walker slots.  ``whole_batch``: ``eval_lp`` takes only the whole
+    ensemble, so they evaluate a full ensemble with their proposals in
+    the active slots and keep those values (JAX kernel.py:1748-1760).
+    ``eval_rows(positions (n, d), rows (n,))``: the posterior of
+    proposals at walker slots ``rows`` (per-walker aux data, sliced to
+    the active slots in the group block layout, JAX kernel.py:515-547).
+    Neither: ``eval_lp`` takes the subset as a batch.
 
     Draws come from ``generator``, or from ``noise`` (the injected-draw
     path the parity tests use), laid out per step ``i`` of the chunk and,
@@ -422,6 +432,24 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
     rescue_on = config.rescue and gradk and regular
     eval_vg = make_eval_vg(eval_plain if eval_plain is not None else eval_lp)
     cache: dict[Any, torch.Tensor] = {}
+
+    def eval_slots(x, frame, a0, bh):
+        """The posterior of proposals ``x`` (G, bh, d) for slots ``a0 ..
+        a0 + bh`` of each group block of ``frame`` (G, B, d): (G * bh,)."""
+        G, B = frame.shape[:2]
+        if whole_batch:
+            full = frame.clone()
+            full[:, a0:a0 + bh] = x
+            lp = eval_lp(full.reshape(G * B, ndim))
+            return lp.reshape(G, B)[:, a0:a0 + bh].reshape(-1)
+        flat = x.reshape(-1, ndim).contiguous()
+        if eval_rows is None:
+            return eval_lp(flat)
+        key = ("rows", G, B, a0, bh, x.device)
+        if key not in cache:
+            cache[key] = (torch.arange(G, device=x.device)[:, None] * B + a0
+                          + torch.arange(bh, device=x.device)).reshape(-1)
+        return eval_rows(flat, cache[key])
 
     def on(t, ref):
         """``t`` (built on the CPU once) on ``ref``'s device."""
@@ -738,20 +766,22 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         lp = state.logprob.reshape(G, B)
         step_noise = None if noise is None else {k: v[i] for k, v in noise.items()}
 
-        def eval_half(x):
+        def eval_half(h, frame):
             # A grouped half is a strided view; the kernel takes a
-            # contiguous (G * Bh, d) batch.
-            evals[0] += 1
-            return _finite(eval_lp(x.reshape(-1, d).contiguous())).reshape(G, Bh)
+            # contiguous (G * Bh, d) batch (eval_slots).
+            def ev(x):
+                evals[0] += 1
+                return _finite(eval_slots(x, frame, h * Bh, Bh)).reshape(G, Bh)
+            return ev
 
         half = HALF_STEPS[sampler]
         x_lo, l_lo = pos[:, :Bh], lp[:, :Bh]
         x_hi, l_hi = pos[:, Bh:], lp[:, Bh:]
         p_lo, lp_lo, a_lo = half(0, x_lo, l_lo, x_hi, temp, generator, step_noise,
-                                 eval_half)
+                                 eval_half(0, pos))
         x_lo_new = torch.where(a_lo[..., None], p_lo, x_lo)
         p_hi, lp_hi, a_hi = half(1, x_hi, l_hi, x_lo_new, temp, generator, step_noise,
-                                 eval_half)
+                                 eval_half(1, torch.cat([x_lo_new, x_hi], dim=1)))
         # Walkers come back in (group, half, index) order.
         proposal = torch.cat([p_lo, p_hi], dim=1).reshape(W, d)
         lp_prop = torch.cat([lp_lo, lp_hi], dim=1).reshape(W)
@@ -1130,7 +1160,7 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         half-rounds leaves pi^(1/T) invariant.  Walkers frozen on a plateau
         by their huge gradients teleport back to the typical set.  Each
         half-round evaluates the (G * Bh, d) proposals value-only through
-        ``eval_lp`` (the fused kernel at W/2 on the GPU).  An odd group
+        ``eval_slots`` (the fused kernel at W/2 on the GPU).  An odd group
         size takes :func:`rescue_adaptive_full`."""
         W = state.position.shape[0]
         G = n_groups if grouped else 1
@@ -1150,7 +1180,7 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             z_y = rescue_t_draw((G, bh, ndim), kw, generator, half)
             prop = mean[:, None, :] + torch.bmm(z_y, chol.transpose(1, 2))
             evals[0] += 1
-            lp_prop = _finite(eval_lp(prop.reshape(G * bh, ndim).contiguous())).reshape(G, bh)
+            lp_prop = _finite(eval_slots(prop, pos_g, a0, bh)).reshape(G, bh)
             z_x = whiten(chol, act_pos - mean[:, None, :])
             log_alpha = ((lp_prop - act_lp) * inv_t
                          + rescue_log_q_t(z_x) - rescue_log_q_t(z_y))

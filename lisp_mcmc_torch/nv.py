@@ -1,6 +1,6 @@
-"""NV-center magnetometry pipeline, one spectrum at a time (nv-specific.lisp).
+"""NV-center magnetometry pipeline (nv-specific.lisp).
 
-Port of the single-spectrum part of ``lisp_mcmc_tpu/nv.py``:
+Port of ``lisp_mcmc_tpu/nv.py`` but its hierarchical fit:
   - data loaders: per-column spectrum separation (``nv-data->separated``,
     nv-specific.lisp:5-6) and directory ingestion with ';' delimiters
     (``nv-dir->data``, 8-10);
@@ -13,17 +13,19 @@ Port of the single-spectrum part of ``lisp_mcmc_tpu/nv.py``:
   - the parameter auto-guess (43-48);
   - the per-spectrum walker factory and the sequential drivers (50-66);
   - the field offset (68-69): (mu2 - mu1) / 2 / 2.8 Oe;
-  - the scan-grid export (76-95).
+  - the scan-grid export (76-95);
+  - a scan grid of spectra on one frequency grid fitted as one ensemble
+    (:class:`BatchedNVFit`, :func:`fit_nv_spectra_batched`), the batched
+    walker set of ``batched.py`` with the pipeline's defaults.
 
-The batched and hierarchical fits of many spectra (``BatchedNVFit``,
-``HierarchicalNVFit``, ``fit_nv_spectra_batched``) wait for
-``batched.py`` and ``hierarchical.py``.
+``HierarchicalNVFit`` waits for ``hierarchical.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .batched import BatchedFit
 from .expressions import walker_with_expression
 from .fit import Walker, walker_create
 from .io import get_filename, read_file_data
@@ -44,6 +46,8 @@ __all__ = [
     "fit_nv_dir",
     "walker_field_offset",
     "export_scan_grid",
+    "BatchedNVFit",
+    "fit_nv_spectra_batched",
 ]
 
 FIELD_OFFSET_EXPRESSION = "(/ (- :mu2 :mu1) 2 2.8)"  # nv-specific.lisp:68-69
@@ -107,6 +111,18 @@ def _nv_boxes(y) -> dict:
         "sigma": (9.0, 20.0),
         "bg0": (float(y.min()) - spread, float(y.max()) + spread),
     }
+
+
+def _require_shared_grid(spectra, who: str):
+    """Refuse spectra on different frequency grids (JAX nv.py:125-133)."""
+    x0 = np.asarray(spectra[0][0], dtype=np.float64)
+    for x, _ in spectra:
+        if len(x) != len(x0) or not np.allclose(x, x0):
+            raise ValueError(
+                f"{who} requires a shared frequency grid (its scan-grid "
+                "exports/heatmaps assume one); for ragged spectra use "
+                "fit_nv_file per file, or a plain BatchedFit (which "
+                "pads ragged batches)")
 
 
 def make_nv_prior(y=None):
@@ -188,6 +204,57 @@ def fit_nv_dir(directory: str, n_steps: int | None = None, **kwargs) -> WalkerSe
     walkers = WalkerSet(nv_walker(d, **kwargs) for d in nv_dir_data(directory))
     walkers.adaptive_steps(n_steps)
     return walkers
+
+
+class BatchedNVFit(BatchedFit):
+    """S spectra fitted as one ensemble (JAX ``BatchedNVFit``,
+    nv.py:225-273): :class:`batched.BatchedFit` with the pipeline's
+    defaults, a shared frequency grid, each spectrum's noise estimate
+    (``nv-data-std-dev``) and guess, and the physics prior with its
+    amplitude boxes scaled to the pooled y range.  One fit replaces the
+    reference's k sequential fits (nv-specific.lisp:60)."""
+
+    def __init__(self, spectra, walkers_per_spectrum: int = 128, seed: int = 0,
+                 model=double_lorentzian_bg, prior=None, dtype=None, config=None,
+                 walker_jitter: float = 0.02, log_likelihood=None, device=None):
+        if len(spectra) == 0:
+            raise ValueError("no spectra provided")
+        _require_shared_grid(spectra, "BatchedNVFit")
+        if prior is None:
+            prior = make_nv_prior(np.concatenate([np.asarray(y, np.float64)
+                                                  for _, y in spectra]))
+        super().__init__(
+            model, spectra, [guess_nv_params(y) for _, y in spectra],
+            [np.full(len(y), nv_data_std_dev(y)) for _, y in spectra],
+            log_prior=prior, log_likelihood=log_likelihood,
+            walkers_per_dataset=walkers_per_spectrum, seed=seed,
+            walker_jitter=walker_jitter, dtype=dtype, config=config, device=device)
+
+    @property
+    def n_spectra(self) -> int:
+        return self.n_datasets
+
+    @property
+    def walkers_per_spectrum(self) -> int:
+        return self.walkers_per_dataset
+
+    def best_params_per_spectrum(self):
+        """Each spectrum's most-likely params: the argmax within its block."""
+        return self.best_params_per_dataset()
+
+    def field_offsets(self):
+        """Each spectrum's field offset in Oe (``walker-field-offset``,
+        nv-specific.lisp:68-69): (mu2 - mu1) / 2 / 2.8."""
+        return self.expressions_per_dataset(FIELD_OFFSET_EXPRESSION)
+
+
+def fit_nv_spectra_batched(spectra, n_steps: int | None = None,
+                           walkers_per_spectrum: int = 128, **kwargs) -> BatchedNVFit:
+    """Fit S spectra as one ensemble and return the batch (JAX
+    nv.py:368-373)."""
+    fit = BatchedNVFit(spectra, walkers_per_spectrum=walkers_per_spectrum, **kwargs)
+    fit.adaptive_steps(n_steps)
+    return fit
 
 
 def walker_field_offset(walker, take: int | None = 1000) -> float:

@@ -121,9 +121,12 @@ def data_resident(post: FusedPosterior) -> bool:
 
 
 def chunk_coverage(terms, spec, config, n_walkers: int, dtype,
-                   n_groups: int = 1) -> str | None:
+                   n_groups: int = 1, aux=None) -> str | None:
     """Why the chunk kernel cannot run this fit, or None.  Like the JAX
-    package's ``pallas_chunk`` it runs ungrouped, untempered rwm."""
+    package's ``pallas_chunk`` it runs ungrouped, untempered rwm without
+    per-walker ``aux`` data."""
+    if aux is not None:
+        return kernel_coverage(terms, spec, aux)
     if dtype != torch.float32:
         return f"the chunk kernel runs float32 fits (got {dtype})"
     if config.tempering_rungs > 1 or config.kernel != "rwm":

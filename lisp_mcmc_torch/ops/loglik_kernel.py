@@ -230,8 +230,12 @@ def split_prior(prior, keys):
     return tuple(entries), rest, (), ()
 
 
-def kernel_coverage(terms, spec) -> str | None:
-    """Why the fused kernel cannot evaluate this posterior, or None."""
+def kernel_coverage(terms, spec, aux=None) -> str | None:
+    """Why the fused kernel cannot evaluate this posterior, or None.
+    ``aux``: the fit's per-walker aux data, an input the kernel lacks."""
+    if aux is not None:
+        return ("per-walker aux data (aux=): the kernel reads one dataset per "
+                "term for every walker")
     if len(terms) > MAX_TERMS:
         return f"{len(terms)} posterior terms (a launch takes up to {MAX_TERMS})"
     if not fusable_terms(terms):

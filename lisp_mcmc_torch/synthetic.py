@@ -17,6 +17,10 @@ generated here with numpy (the flagship's own is
   hundredth of dataset 1's, on the same background;
 - :func:`nv_spectra`: ODMR spectra of ``double_lorentzian_bg`` on a
   401-point grid over 2840-2900 MHz, with dips 20x the noise;
+  :func:`nv_scan_grid`: a rows x cols scan grid of such spectra whose
+  dips move smoothly across the grid, as a field map's do;
+- :func:`line_evidence_case`: a straight-line fit under a box prior whose
+  evidence has a closed form;
 - :func:`twin_case`: a fit of each zoo model, for holding its CUDA twin
   against the plain model;
 - :func:`dense_l`: a dense proposal factor for holding the chunk kernel
@@ -38,7 +42,7 @@ from .priors import Gaussian, LogNormal, PriorSpec
 from .roofline import FLAGSHIP, N_POINTS
 
 __all__ = ["dense_l", "global_fit", "nv_spectra", "NV_SPECTRA", "TWIN_PARAMS",
-           "twin_case", "write_nv_file"]
+           "twin_case", "write_nv_file", "nv_scan_grid", "line_evidence_case"]
 
 # test.lisp:58-70's starting point; datasets past the second start as it.
 _GLOBAL_START = {"scale": 1e-6, "linewidth": 100.0, "x0": 2700.0, "mix": 0.1,
@@ -110,6 +114,58 @@ def nv_spectra(seed: int = 0):
         y = double_lorentzian_bg(torch.tensor(x), p).numpy()
         ys.append(y + NV_NOISE * rng.standard_normal(x.shape[0]))
     return x, ys
+
+
+def nv_scan_grid(rows: int, cols: int, seed: int = 0):
+    """``(x, ys (rows * cols, 401), truths)``: a scan grid of NV spectra on
+    :func:`nv_spectra`'s grid and noise, pixels in row-major order.
+
+    Across the grid the dips' centre moves by 4 MHz and their splitting
+    by 6 MHz (14-20 MHz: field offsets 2.5-3.6 Oe), smoothly, as a field
+    map's do; mu1 stays in 2856-2863 and mu2 in 2873-2880 MHz (inside
+    ``make_nv_prior``'s boxes), the scale ratio in 0.98-1.02, sigma 10,
+    depth 0.02 on a background of 1.
+    """
+    u = np.repeat(np.linspace(0.0, 1.0, rows), cols)
+    v = np.tile(np.linspace(0.0, 1.0, cols), rows)
+    centre = 2868.0 + 2.0 * (v - 0.5) + np.cos(np.pi * u)
+    split = 14.0 + 3.0 * u + 3.0 * np.sin(np.pi * v)
+    truths = [{"scale1": 0.020, "scale2": float(0.020 * (1.0 + 0.04 * (a - 0.5))),
+               "mu1": float(c - 0.5 * s), "mu2": float(c + 0.5 * s), "sigma": 10.0,
+               "bg0": 1.0} for a, c, s in zip(u, centre, split)]
+    x = np.linspace(2840.0, 2900.0, 401)
+    p = {n: torch.tensor([t[n] for t in truths], dtype=torch.float64)[:, None]
+         for n in truths[0]}
+    y = double_lorentzian_bg(torch.tensor(x), p).numpy()
+    rng = np.random.default_rng(seed)
+    return x, y + NV_NOISE * rng.standard_normal(y.shape), truths
+
+
+def line_evidence_case(n: int = 334, sigma: float = 2.0, seed: int = 0) -> dict:
+    """A line ``y = 1 + 2 x + N(0, sigma^2)`` on ``x = linspace(0, 1, n)``
+    under the box ``m in (-4, 8)``, ``b in (-3, 5)`` (at the defaults at
+    least 14 posterior standard deviations from the estimate on every
+    side), with its evidence in closed form, in float64: the likelihood is
+    Gaussian in (m, b), so
+
+        log Z = log L(beta_hat) + log 2pi + 1/2 log det(sigma^2 (X^T X)^-1) - log V.
+
+    Returns ``{"x", "y", "sigma", "truth", "bounds", "beta_hat", "cov",
+    "log_z"}`` (``beta_hat`` the least-squares ``{"m", "b"}``, ``cov`` its
+    covariance)."""
+    x = np.linspace(0.0, 1.0, n)
+    y = 1.0 + 2.0 * x + sigma * np.random.default_rng(seed).standard_normal(n)
+    X = np.column_stack([x, np.ones(n)])
+    beta, *_ = np.linalg.lstsq(X, y, rcond=None)
+    cov = sigma ** 2 * np.linalg.inv(X.T @ X)
+    r = y - X @ beta
+    log_l = float(np.sum(-0.5 * math.log(2.0 * math.pi * sigma ** 2) - 0.5 * (r / sigma) ** 2))
+    bounds = {"m": (-4.0, 8.0), "b": (-3.0, 5.0)}
+    log_v = sum(math.log(hi - lo) for lo, hi in bounds.values())
+    log_z = log_l + math.log(2.0 * math.pi) + 0.5 * math.log(np.linalg.det(cov)) - log_v
+    return {"x": x, "y": y, "sigma": sigma, "truth": {"m": 2.0, "b": 1.0},
+            "bounds": bounds, "beta_hat": {"m": float(beta[0]), "b": float(beta[1])},
+            "cov": cov, "log_z": log_z}
 
 
 def write_nv_file(path, seed: int = 0):

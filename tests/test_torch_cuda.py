@@ -622,3 +622,64 @@ def test_fused_plan_fills_a_wave(cuda, W):
     assert min(per_sm, plan["blocks_per_sm"]) * plan["threads"] // 32 >= 32, plan
     assert plan["blocks"] * plan["threads"] // plan["S"] * plan["R"] >= W
     assert tlk.fused_plan(post, W) == plan and (W, None, None, None) in post.plans
+
+
+def _line_walker(device, n_walkers, **kw):
+    """``synthetic.line_evidence_case`` (a line under a box prior) as a fit."""
+    c = synthetic.line_evidence_case()
+    w = tfit.walker_create(function=models.line, data=(c["x"], c["y"]),
+                           params=c["truth"], data_error=c["sigma"],
+                           log_prior=tfit.make_bounds_prior(c["bounds"]),
+                           n_walkers=n_walkers, walker_jitter=0.05, device=device, **kw)
+    return w, c
+
+
+def test_evidence_paths_take_kernel_1(cuda):
+    """``log_evidence`` launches kernel 1 once a ladder step, once for the
+    fit's probe and once for the prior-MC closure; ``smc_sample`` once for
+    its box draws and once a move step; kernel 1 agrees with its plain
+    version on the ladder's ensemble, on the closure's box draws and on
+    the SMC particles."""
+    w, c = _line_walker(cuda, 4096)
+    before = tlk.fused_posterior.launches
+    res = w.log_evidence(n_steps=2000, rungs=8, t_max=1e4)
+    assert w.posterior_evals == 2000
+    assert tlk.fused_posterior.launches - before == 2000 + 2
+    assert abs(res.log_z - c["log_z"]) < 1.0, (res, c["log_z"])
+    post = tlk.prepare_fused_terms(w.terms, w.spec, torch.float32)
+    box = torch.rand((4096, 2), device=cuda) * torch.tensor([12.0, 8.0], device=cuda) \
+        + torch.tensor([-4.0, -3.0], device=cuda)
+    for pos in (w.state.position, box):
+        got = tlk.fused_posterior(pos, post)
+        assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= 1e-4
+    before, evals = tlk.fused_posterior.launches, w.posterior_evals
+    out = w.smc_sample(c["bounds"], n_move=200, target_moves=None)
+    assert tlk.fused_posterior.launches - before == 1 + (w.posterior_evals - evals)
+    assert w.posterior_evals - evals == 200 * out.n_stages
+    assert abs(out.log_z - c["log_z"]) < 1.0, (out, c["log_z"])
+    pos = w.state.position
+    got = tlk.fused_posterior(pos, post)
+    assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= 1e-4
+
+
+def test_chunk_kernel_at_a_stage_temperature_matches_plain(cuda):
+    """Kernel 2 with the temperature override a number (an SMC stage's
+    T = 1/beta) against its plain version through ``chunk_diff``, and the
+    SMC moves on ``posterior_impl="chunk_kernel"``: one kernel-2 launch a
+    chunk."""
+    w, c = _line_walker(cuda, 4096, config=tfit.FitConfig(posterior_impl="chunk_kernel"))
+    ck = tck.build_chunk_kernel(w.terms, w.spec, w.config, 4096, torch.float32)
+    st = w.state
+    # a dense L with a correlation of -0.6 (the posterior's is -0.86), so the
+    # off-diagonal moments are signal (their median 0.6-0.7 of sqrt(m_ii m_jj))
+    L = torch.linalg.cholesky(torch.tensor([[0.09, -0.036], [-0.036, 0.04]])).to(cuda)
+    for temp in (1.0, 37.5):
+        args = (st.position, st.logprob, st.best_position, st.best_logprob, L, 1000, temp,
+                torch.tensor([7], dtype=torch.int32, device=cuda))
+        _agree(tck.chunk_rwm(ck, *args), tck.chunk_rwm_plain(ck, *args), ck.post)
+    chunks = []
+    before = tck.chunk_rwm.launches
+    out = w.smc_sample(c["bounds"], n_move=400, target_moves=None,
+                       on_stage=lambda info: chunks.append(info["chunks"]) and False)
+    assert tck.chunk_rwm.launches - before == sum(chunks) == 2 * out.n_stages
+    assert abs(out.log_z - c["log_z"]) < 1.0, (out, c["log_z"])

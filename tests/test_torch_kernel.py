@@ -212,10 +212,14 @@ def test_out_of_slice_configs_raise():
     with pytest.raises(ValueError, match="posterior_impl"):
         tkernel.FitConfig(posterior_impl="pallas")
     x = np.linspace(0.0, 1.0, 8)
-    # Adaptation groups are ported; per-walker aux data is not.
-    with pytest.raises(NotImplementedError):
-        tfit.Walker([], tfit.ParamSpec(("m",)), [1.0], device="cpu",
+    # Adaptation groups and per-walker aux data are ported; aux is read by
+    # a custom log_posterior(theta, aux_w, data), and refused without one.
+    with pytest.raises(ValueError, match="custom log_posterior"):
+        tfit.Walker([], tfit.ParamSpec(("m",)), [1.0], n_walkers=4, device="cpu",
                     aux=np.zeros(4))
+    w = tfit.Walker([], tfit.ParamSpec(("m",)), [1.0], n_walkers=4, device="cpu",
+                    aux=np.arange(4.0), log_posterior=lambda t, a, d: -(t[0] - a) ** 2)
+    assert torch.equal(w.state.logprob, -(1.0 - torch.arange(4.0)) ** 2)
     assert tkernel.resolve_accept_band(tkernel.FitConfig()) == (0.2, 0.4)
     assert tkernel.resolve_accept_band(tkernel.FitConfig(kernel="mala")) == (0.45, 0.7)
     del x
