@@ -115,7 +115,8 @@ an H100) and the CUDA toolkit.  It
     (``synthetic.nv_scan_grid``) as one ``nv.BatchedNVFit`` of 128
     walkers a spectrum (W = 131072, float32) on the plain batched
     posterior (checked: no kernel launches, by design), the nv phase's
-    40000-step anneal, then ``sampling_steps`` with stretch (200 steps)
+    40000-step anneal and 4000 rwm steps at T = 1, then ``sampling_steps``
+    with stretch (200 steps)
     and mala (50) on the same batch and ``laplace_per_dataset``; gates
     every spectrum's mu1, mu2 and field offset within 0.5 MHz, its
     acceptance over 1000 steps after the anneal in 0.2-0.4, finite states,
@@ -128,16 +129,36 @@ an H100) and the CUDA toolkit.  It
     kernel 1 once a ladder step; gates the JAX test's 0.25 / 0.35 / 0.2),
     ``smc_sample`` on the default path and on ``chunk_kernel`` (kernel 2
     at each stage's temperature; each within 0.25), ``laplace_approx``
-    (within 0.05), the launch counts of both kernels, kernel 1 against its
-    plain version on the ladder's ensemble and kernel 2 on the SMC
-    particles at a stage temperature (T = 10);
-24. prints the ``kernels`` summary line (each kernel's time, launches on
+    (within 0.05), ``nested_sample`` at n_live = 131072 (kernel 1 on every
+    refill move at W = 32768; within max(0.25, 4 log_z_err) of the closed
+    form, log_z_err < 0.05, launches 1 + rounds x 32), the launch counts
+    of both kernels, kernel 1 against its plain version on the ladder's
+    ensemble and at the refills' width, and kernel 2 on the SMC particles
+    at a stage temperature (T = 10);
+24. ``criticism``: on the flagship journey's walker, after
+    ``reset_to_most_likely`` and 4000 adaptive steps at T = 1 (the same on
+    the named-prior journey's walker), reading the last 2000 steps:
+    ``waic``, ``loo``, ``loo_pit``, ``audit``, ``posterior_predictive`` and
+    ``ppc_pvalue``, ``predict`` on 2048 points, ``prior_predictive``,
+    ``profile_likelihood("x0")`` (kernel 1 on its 168 rows),
+    ``prior_sensitivity`` with ``synthetic.flagship_prior_spec``,
+    ``kfold(k=10)`` and ``reloo`` of the 4 highest Pareto k (4000 anneal
+    steps; their refits on the plain batched posterior), and
+    ``nested_per_dataset`` on 16
+    line cases (``synthetic.line_evidence_batch``); gates loo within 2.0
+    of waic, kfold within 2 max(se, 1) of loo, loo_pit ok, the profile's
+    maximum inside its grid with x0 within 1 %, 4 refits, each nested run
+    within max(0.25, 4 log_z_err) of its closed form, every result finite
+    and every launch count; reports each verb's seconds, the refits' ms a
+    step and the device's busy share over profiled mala chunks;
+25. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
     width, with its launches on the ensemble journeys, at the rescue's
     W/2, with its launches on the gradient journeys, with the named
-    prior, with its launches on the named-prior journey, and the line
-    twin with its launches on the evidence journeys; kernel 2 with the
+    prior, with its launches on the named-prior journey, the line twin
+    with its launches on the evidence journeys, and the line twin at the
+    nested refills' W = 32768 with its launches there; kernel 2 with the
     named prior, with its launches on its chunk-kernel journey, and at an
     SMC stage's temperature, with its launches on the SMC journey; kernel
     1's rows with the kernel-only ms and the plan), the card line and,
@@ -1044,7 +1065,8 @@ def _global_report(w, g, lp_gen, name):
 
 
 def phase_journey(counters):
-    """The default path: fused kernel per step, history on."""
+    """The default path: fused kernel per step, history on; returns the
+    launches and the walker (the criticism phase reads its fit)."""
     import torch
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch.roofline import FLAGSHIP
@@ -1073,7 +1095,7 @@ def phase_journey(counters):
           "acceptance": acc, "history": list(pos.shape), "ess": ess,
           "ess_seconds": ess_secs, "min_ess_per_sec": min(ess.values()) / secs,
           "launches": launches})
-    return launches
+    return launches, w
 
 
 def phase_chunk_journey(counters):
@@ -1752,7 +1774,7 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
     journey on both paths, each kernel against its plain version with the
     spec (kernel 1 also with an MVGaussian from the journey's fit),
     ``optimize`` and ``unit_cube_view``; returns the kernels line's two
-    rows."""
+    rows and the named-prior journey's walker."""
     import numpy as np
     import torch
     import lisp_mcmc_torch as mfit
@@ -1927,13 +1949,15 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
          "threads": out["chunk"]["launch"]["threads"],
          "blocks_per_sm": out["chunk"]["launch"]["blocks_per_sm"],
          "waves": out["chunk"]["launch"]["waves"]},
-    ]
+    ], w
 
 
 # The batched NV journey: a 32 x 32 scan grid of spectra
 # (synthetic.nv_scan_grid) as one BatchedNVFit of 128 walkers a spectrum
 # (W = 131072), float32, on the plain batched posterior (neither kernel
-# reads a per-walker dataset); the anneal is the nv phase's 40000 steps.
+# reads a per-walker dataset); the anneal is the nv phase's 40000 steps (a
+# 30000-step anneal left 3 of 1024 spectra above 0.4 acceptance after the
+# cold steps, max 0.503, on an H100).
 # Gates, fixed before the first chip run: each spectrum's best mu1, mu2
 # and field offset within NV_TOL_MHZ of its truth; each spectrum's
 # acceptance in 0.2-0.4 over 1000 steps (5 chunks at the cold finish's
@@ -2097,6 +2121,17 @@ def phase_batched_nv(counters):
 # launches equal to the steps' evaluations plus the probe and the
 # closure (ladder) or the box draws (SMC); kernel-2 launches equal to the
 # chunks the SMC stages ran.
+# Nested sampling on the ladder's walker (the line case, W = 131072,
+# float32): n_live = 131072, k_batch and n_repeat at their defaults
+# (n_live / 4 = 32768 refills a round, 8 d + 16 = 32 constrained moves each,
+# every move one kernel-1 launch at W = 32768).  Gates, fixed before the
+# first chip run: log_z within max(0.25, 4 log_z_err) of the closed form
+# (the phase's SMC bound; JAX tests/test_nested.py:69's 4-sigma form) and
+# log_z_err < 0.05; the launches 1 + n_iter x n_repeat exactly (the
+# initial live set, then the moves; the fit's probe ran on the ladder).
+EVIDENCE_NESTED_LIVE = 131072
+EVIDENCE_NESTED_TOL = 0.25
+EVIDENCE_NESTED_ERR = 0.05
 EVIDENCE_LADDER = {"n_steps": 16000, "rungs": 16, "t_max": 1e4}
 EVIDENCE_SMC_MOVE = 400
 EVIDENCE_TOL = {"ladder": 0.25, "ti": 0.35, "error": 0.2, "smc": 0.25, "laplace": 0.05}
@@ -2139,15 +2174,17 @@ def phase_evidence(ceilings, counters, ptxas):
     """The evidence layer on the line case: ``log_evidence`` (the tempered
     ladder, kernel 1 once a step), ``smc_sample`` on the default path and
     on ``posterior_impl="chunk_kernel"`` (kernel 2 at each stage's
-    temperature), ``laplace_approx``; kernel 1 and kernel 2 against their
+    temperature), ``laplace_approx``, ``nested_sample`` (kernel 1 on every
+    refill move, at W = n_live / 4); kernel 1 and kernel 2 against their
     plain versions on those paths' own inputs; returns the kernels line's
-    two rows."""
+    three rows."""
     import numpy as np
     import torch
     import lisp_mcmc_torch as mfit
     from lisp_mcmc_torch import models, synthetic
     from lisp_mcmc_torch.ops.chunk_kernel import (build_chunk_kernel, chunk_bytes,
                                                   chunk_census)
+    from lisp_mcmc_torch.nested import _nested_budget as nested_budget
     from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior_plain,
                                                    posterior_census, prepare_fused_terms)
 
@@ -2230,6 +2267,37 @@ def phase_evidence(ceilings, counters, ptxas):
     out["laplace"] = {"seconds": time.perf_counter() - t0, "log_z": lap.log_z,
                       "n_clamped": lap.n_clamped, "sd": lap.sd,
                       "sd_closed_form": dict(zip(("m", "b"), np.sqrt(np.diag(case["cov"]))))}
+
+    # nested sampling on the ladder's walker: kernel 1 on every refill move
+    rounds = []
+    probed = "_fused" in w._runner_cache
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ns = w.nested_sample(case["bounds"], n_live=EVIDENCE_NESTED_LIVE,
+                         on_round=lambda info: rounds.append(info) and False)
+    torch.cuda.synchronize()
+    k_batch, n_repeat = nested_budget(EVIDENCE_NESTED_LIVE, None, None, w.ndim)
+    nested = {"seconds": time.perf_counter() - t0, "n_live": EVIDENCE_NESTED_LIVE,
+              "k_batch": k_batch, "n_repeat": n_repeat, "log_z": ns.log_z,
+              "log_z_err": ns.log_z_err, "h": ns.h, "n_iter": ns.n_iter, "ess": ns.ess,
+              "insertion_p": ns.insertion_p, "logl_max": ns.logl_max,
+              "final_acceptance": rounds[-1]["acceptance"],
+              "final_scale": rounds[-1]["scale"],
+              "acceptance_by_round": [r["acceptance"] for r in rounds],
+              "probe_cached": probed, "launches": launches()}
+    # kernel 1 at the refills' width, on the run's last 32768 points (the
+    # final live set's best quarter)
+    refill = torch.as_tensor(ns.samples[-k_batch:], dtype=torch.float32, device=DEVICE)
+    rel, abs_err = _fused_check(post, refill, RTOL["float32"], "evidence nested kernel 1")
+    nested["kernel1"] = {"W": k_batch, "max_rel_err": rel, "max_abs_err": abs_err,
+                         **_kernel1(refill, post, ptxas),
+                         "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(refill, post),
+                                                  5),
+                         **_bounds(posterior_census(post), 1, fused_bytes(post, k_batch),
+                                   ceilings, walkers=k_batch)}
+    out["nested"] = nested
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
 
@@ -2258,6 +2326,16 @@ def phase_evidence(ceilings, counters, ptxas):
           f"{k['chunks']} chunks (kernel 1: the probe and the box draws)")
     check(lap.log_z is not None and abs(lap.log_z - truth) <= tol["laplace"],
           f"evidence: Laplace log_z {lap.log_z} not within {tol['laplace']} of {truth}")
+    band = max(EVIDENCE_NESTED_TOL, 4.0 * ns.log_z_err)
+    check(np.isfinite(ns.log_z) and abs(ns.log_z - truth) <= band,
+          f"evidence: nested log_z {ns.log_z} not within {band} of {truth}")
+    check(ns.log_z_err < EVIDENCE_NESTED_ERR,
+          f"evidence: nested log_z_err {ns.log_z_err} >= {EVIDENCE_NESTED_ERR}")
+    want = 1 + ns.n_iter * n_repeat + (0 if probed else 1)
+    check(nested["launches"]["fused_posterior"] == want
+          and nested["launches"]["chunk_rwm"] == 0,
+          f"evidence: nested launched {nested['launches']}, want {want} of kernel 1 "
+          f"(1 + {ns.n_iter} rounds x {n_repeat} moves)")
 
     common = {"route": "cuda", "library_ms": None}
     return [
@@ -2277,7 +2355,216 @@ def phase_evidence(ceilings, counters, ptxas):
          "temperature": EVIDENCE_CHUNK_TEMP, "registers": chunk["launch"]["registers"],
          "threads": chunk["launch"]["threads"],
          "blocks_per_sm": chunk["launch"]["blocks_per_sm"], "waves": chunk["launch"]["waves"]},
+        {"name": "fused_posterior_line_nested", **common,
+         "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+         "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117", "W": k_batch,
+         "launches": nested["launches"]["fused_posterior"],
+         **{k: nested["kernel1"][k] for k in ("max_abs_err", "ms", "kernel_ms", "plan",
+                                              "plain_ms", "bound_ms", "bound_by",
+                                              "opmix_bound_ms")}},
     ]
+
+
+# The criticism phase: model checking and comparison on the flagship
+# journey's walker (W = 131072, float32).  The JAX package's recipe for
+# this fit (diagnostics.waic's docstring: walkers left in a far mode after
+# the anneal dominate the variance): reset_to_most_likely, then
+# CRITICISM_COLD adaptive steps at T = 1 with history (kernel 1 once a
+# step); every history verb reads the last CRITICISM_TAKE of them.  The
+# named-prior journey's walker takes the same recipe before
+# prior_sensitivity (which refuses draws outside the prior's walls).
+# Gates, fixed before the first chip run and never widened: loo's elpd
+# within 2.0 of waic's (JAX tests/test_loo.py:73); kfold's (k = 10 at its
+# defaults: 64 walkers a fold, 8000 steps) within 2 max(se, 1) of loo's
+# (JAX tests/test_kfold.py:38); loo_pit ok; the profile's maximum inside
+# its grid with x0 there within 1 % of 2784.68; reloo refitting exactly
+# 4 points; each of the 16 nested_per_dataset runs within max(0.25, 4
+# log_z_err) of its closed form; every result finite; kernel-1 launches
+# as the structure implies (the cold steps; profile_likelihood's 1 +
+# rounds value-only evaluations at W = 168; none elsewhere) and no launch
+# inside the refits and nested_per_dataset (their fits have per-walker
+# aux: plain by design).
+CRITICISM_COLD = 4000
+CRITICISM_TAKE = 2000
+CRITICISM_GRID = 2048
+CRITICISM_PRIOR_DRAWS = 256
+CRITICISM_KFOLD = 10
+CRITICISM_RELOO = 4
+# reloo's anneal (then max(2000, half) mala steps): half kfold's default
+# 8000, to keep the script inside its time limit (8000 took 36.9 s)
+CRITICISM_RELOO_STEPS = 4000
+CRITICISM_DATASETS = 16
+CRITICISM_NESTED_LIVE = 512
+CRITICISM_TOL = {"loo_waic": 2.0, "kfold_se": 2.0, "x0": 0.01, "nested": 0.25}
+# prior_predictive's box: each flagship parameter within a factor 2 of its
+# generating value
+CRITICISM_BOX_FACTOR = 2.0
+
+
+def _finite(*arrays):
+    import numpy as np
+
+    return all(bool(np.all(np.isfinite(np.asarray(a, np.float64)))) for a in arrays)
+
+
+def phase_criticism(counters, w, prior_walker):
+    """Model criticism and nested sampling per dataset (see the constants
+    above): on the journey's walker ``waic``, ``loo``, ``loo_pit``,
+    ``audit``, ``posterior_predictive``, ``ppc_pvalue``, ``predict``,
+    ``prior_predictive``, ``profile_likelihood("x0")``, ``kfold`` and
+    ``reloo``; ``prior_sensitivity`` on the named-prior journey's walker;
+    ``nested_per_dataset`` on a ``BatchedFit`` of 16 line cases.  Reports
+    each verb's seconds and launches, the refits' ms a step and the device's
+    busy share over profiled mala chunks of the kfold refit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import diagnostics, models, synthetic
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    t_phase = time.perf_counter()
+    out = {"phase": "criticism", "W": W_FLAGSHIP, "cold_steps": CRITICISM_COLD,
+           "take": CRITICISM_TAKE, "seconds_by_verb": {}, "launches_by_verb": {}}
+
+    def timed(name, fn):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out["seconds_by_verb"][name] = time.perf_counter() - t0
+        out["launches_by_verb"][name] = {c.__name__: c.launches for c in counters}
+        return r
+
+    take = CRITICISM_TAKE
+    probed = "_fused" in w._runner_cache and "_fused" in prior_walker._runner_cache
+    for walker in (w, prior_walker):
+        walker.reset_to_most_likely()
+    timed("cold_steps", lambda: w.adaptive_steps(CRITICISM_COLD, temperature=1.0, auto=None))
+    timed("prior_cold_steps", lambda: prior_walker.adaptive_steps(
+        CRITICISM_COLD, temperature=1.0, auto=None))
+    out["history"] = list(w._history(take)[0].shape)
+    out["acceptance"] = w.acceptance()
+    wa = timed("waic", lambda: diagnostics.waic(w, take=take))
+    lo = timed("loo", lambda: diagnostics.loo(w, take=take))
+    pit = timed("loo_pit", lambda: diagnostics.loo_pit(w, take=take))
+    aud = timed("audit", lambda: w.audit(take=take))
+    draws = timed("posterior_predictive", lambda: w.posterior_predictive(take=take))
+    ppc = timed("ppc_pvalue", lambda: w.ppc_pvalue(draws=draws))
+    grid = np.linspace(2000.0, 3600.0, CRITICISM_GRID)
+    pred = timed("predict", lambda: w.predict(grid, take=take, noise=1e-7))
+    box = {k: tuple(sorted((v / CRITICISM_BOX_FACTOR, v * CRITICISM_BOX_FACTOR)))
+           for k, v in FLAGSHIP.items()}
+    prior_draws = timed("prior_predictive", lambda: w.prior_predictive(
+        bounds=box, n_samples=CRITICISM_PRIOR_DRAWS))
+    prof = timed("profile_likelihood", lambda: w.profile_likelihood("x0"))
+    sens = timed("prior_sensitivity", lambda: prior_walker.prior_sensitivity(
+        prior=synthetic.flagship_prior_spec(), take=take))
+
+    # the refits, timed inside (anneal and mala phases together)
+    refits = {}
+    real_run = diagnostics._run_refit
+
+    def run_refit(fit, n_steps, temperature, burn_fraction):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_run(fit, n_steps, temperature, burn_fraction)
+        torch.cuda.synchronize()
+        steps = n_steps + max(2000, n_steps // 2)
+        refits[len(refits)] = {"fit": fit, "walkers": fit.n_walkers, "steps": steps,
+                               "seconds": time.perf_counter() - t0}
+
+    diagnostics._run_refit = run_refit
+    try:
+        kf = timed("kfold", lambda: diagnostics.kfold(w, k=CRITICISM_KFOLD))
+        k_sorted = np.sort(lo.pareto_k)
+        thr = float(np.nextafter(k_sorted[-CRITICISM_RELOO], -np.inf))
+        rl = timed("reloo", lambda: diagnostics.reloo(w, lo, k_threshold=thr,
+                                                      n_steps=CRITICISM_RELOO_STEPS))
+    finally:
+        diagnostics._run_refit = real_run
+    kfit = refits[0]["fit"]
+    for r in refits.values():
+        del r["fit"]
+        r["ms_per_step"] = r["seconds"] * 1e3 / r["steps"]
+    out["refits"] = {"kfold": refits[0], "reloo": refits.get(1)}
+    # the device's busy share over mala chunks of the kfold refit (20 steps)
+    kfit.config = dataclasses.replace(kfit.config, kernel="mala", chunk_size=20)
+    out["refits"]["kfold_mala_profile"] = _profile_chunks(
+        "criticism_refit_mala", kfit._runner(with_history=False), kfit.state,
+        kfit.generator, args=(True, False, True), steps=20)
+    del kfit
+
+    batch = synthetic.line_evidence_batch(CRITICISM_DATASETS)
+    bf = mfit.BatchedFit(models.line, batch["datasets"], batch["truth"],
+                         data_error=batch["sigma"],
+                         log_prior=mfit.make_bounds_prior(batch["bounds"]),
+                         walkers_per_dataset=8, dtype=torch.float32, device=DEVICE)
+    nested = timed("nested_per_dataset", lambda: bf.nested_per_dataset(
+        n_live=CRITICISM_NESTED_LIVE))
+
+    out.update({
+        "waic": {"elpd": wa.elpd, "p_waic": wa.p_waic, "se": wa.se,
+                 "n_samples": wa.n_samples},
+        "loo": {"elpd": lo.elpd, "p_loo": lo.p_loo, "se": lo.se, "n_bad_k": lo.n_bad_k,
+                "max_k": float(lo.pareto_k.max())},
+        "loo_pit": {"ok": pit.ok, "ks": pit.ks_stat, "p": pit.p_value,
+                    "n_bad_k": pit.n_bad_k},
+        "audit": {"ok": aud.ok, "advice": aud.advice, "skipped": aud.skipped,
+                  "convergence_ok": aud.convergence["ok"]},
+        "ppc": {"p": ppc["p"], "coverage_90": draws[0].coverage()},
+        "predict": {"N": CRITICISM_GRID, "draws": int(pred.mu.shape[0])},
+        "prior_predictive": {"draws": int(prior_draws[0].y_rep.shape[0])},
+        "profile": {"at_max": prof.at_max, "lp_max": prof.lp_max,
+                    "grid": [float(prof.grid[0]), float(prof.grid[-1])],
+                    "ci95": prof.ci()[:2], "probe_cached": probed},
+        "prior_sensitivity": {"prior": sens.prior, "likelihood": sens.likelihood,
+                              "diagnosis": sens.diagnosis},
+        "kfold": {"elpd": kf.elpd, "se": kf.se, "fold_ok": kf.fold_ok.tolist(),
+                  "n_samples": kf.n_samples},
+        "reloo": {"threshold": thr, "refits": int((lo.pareto_k > thr).sum()),
+                  "elpd": rl.elpd, "refit_failed": list(rl.refit_failed)},
+        "nested_per_dataset": [
+            {"log_z": r.log_z, "log_z_err": r.log_z_err, "closed_form": float(z),
+             "n_iter": r.n_iter, "insertion_p": r.insertion_p}
+            for r, z in zip(nested, batch["log_z"])],
+    })
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    tol = CRITICISM_TOL
+    check(abs(lo.elpd - wa.elpd) <= tol["loo_waic"],
+          f"criticism: loo elpd {lo.elpd} not within {tol['loo_waic']} of waic's {wa.elpd}")
+    band = tol["kfold_se"] * max(kf.se, 1.0)
+    check(abs(kf.elpd - lo.elpd) <= band,
+          f"criticism: kfold elpd {kf.elpd} not within {band} of loo's {lo.elpd}")
+    check(pit.ok, f"criticism: loo_pit not ok (KS p {pit.p_value})")
+    inside = prof.grid[0] < prof.at_max < prof.grid[-1]
+    check(inside and abs(prof.at_max - FLAGSHIP["x0"]) <= tol["x0"] * FLAGSHIP["x0"],
+          f"criticism: the profile's maximum {prof.at_max} is not inside its grid "
+          f"{prof.grid[0]}..{prof.grid[-1]} within 1% of {FLAGSHIP['x0']}")
+    check(out["reloo"]["refits"] == CRITICISM_RELOO,
+          f"criticism: reloo refit {out['reloo']['refits']} points, want {CRITICISM_RELOO}")
+    for i, (r, z) in enumerate(zip(nested, batch["log_z"])):
+        b = max(tol["nested"], 4.0 * r.log_z_err)
+        check(np.isfinite(r.log_z) and abs(r.log_z - z) <= b,
+              f"criticism: nested_per_dataset {i}: log_z {r.log_z} not within {b} of {z}")
+    check(_finite(wa.pointwise, lo.pointwise, pit.pit, draws[0].y_rep, draws[0].mu,
+                  pred.mu, pred.y_rep, prior_draws[0].mu, prof.profile_lp,
+                  list(sens.prior.values()), list(sens.likelihood.values()),
+                  kf.pointwise, rl.pointwise, [ppc["p"]]),
+          "criticism: a non-finite result")
+    lv = out["launches_by_verb"]
+    # the walker's equivalence probe ran on the journey unless it is cached
+    probe = 0 if probed else 1
+    want = {"cold_steps": CRITICISM_COLD + probe, "prior_cold_steps": CRITICISM_COLD + probe,
+            "profile_likelihood": 3}
+    for verb, counts in lv.items():
+        check(counts["fused_posterior"] == want.get(verb, 0) and counts["chunk_rwm"] == 0,
+              f"criticism: {verb} launched {counts}, want {want.get(verb, 0)} of kernel 1")
+    return out
 
 
 def _slice_noise(W, steps, cfg, generator):
@@ -2423,7 +2710,7 @@ def main():
     phase_twins(ceilings, ptxas)
     global_walker, global_lp_gen = phase_global(ceilings, counters, ptxas)
     phase_chunk_wide(ceilings, ptxas)
-    main_launches = phase_journey(counters)
+    main_launches, journey_walker = phase_journey(counters)
     chunk_launches = phase_chunk_journey(counters)
     phase_nv(ceilings, counters, ptxas)
     phase_nv_chunk(ceilings, counters, ptxas)
@@ -2435,10 +2722,13 @@ def main():
     rescue_row = phase_gradient(ceilings, counters, ptxas, ensemble)
     phase_chees_d24()
     phase_blocked(counters)
-    prior_rows = phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen)
+    prior_rows, prior_walker = phase_priors(ceilings, counters, ptxas, global_walker,
+                                            global_lp_gen)
     del global_walker
     phase_batched_nv(counters)
     evidence_rows = phase_evidence(ceilings, counters, ptxas)
+    phase_criticism(counters, journey_walker, prior_walker)
+    del journey_walker, prior_walker
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -2459,7 +2749,7 @@ def main():
     # kernel 1 and kernel 2 with the flagship's named prior as a table
     kernels.extend(prior_rows)
     # kernel 1 (the line twin) on the evidence journeys, kernel 2 on the
-    # SMC stages
+    # SMC stages, kernel 1 at the nested refills' width
     kernels.extend(evidence_rows)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels

@@ -6,8 +6,11 @@ model, any number of terms), and the roofline's ceiling probe
 (``roofline.py``), are CUDA C++ written for Hopper (``csrc/``), built
 with ``nvcc`` at first use.  A named prior (``PriorSpec``,
 ``MVGaussian``) runs inside both kernels as a declared table.  Batched
-walker sets (``BatchedFit``, ``BatchedNVFit``) and the evidence layer
-(``log_evidence``, ``smc_sample``, ``laplace_approx``) are ported too.
+walker sets (``BatchedFit``, ``BatchedNVFit``), the evidence layer
+(``log_evidence``, ``smc_sample``, ``laplace_approx``, ``nested_sample``)
+and model criticism (predictive checks, WAIC, PSIS-LOO, LOO-PIT, the
+audit, prior sensitivity, refit cross-validation, model weights, the
+profile likelihood) are ported too.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -27,10 +30,14 @@ from .data import Dataset, clean_data, clean_data_error, create_walker_data
 from .device import resolve_device
 from .evidence import (EvidenceResult, LaplaceResult, laplace_approx, log_bayes_factor,
                        log_evidence)
-from .diagnostics import (convergence, convergence_per_dataset, ess_from_history,
-                          ess_per_param, mcse_per_param, metrics, rank_rhat_per_param,
-                          rhat_from_history, rhat_per_param, summary, tail_ess_per_param,
-                          trace_profile)
+from .diagnostics import (AuditResult, KFoldResult, LOOPITResult, LOOResult,
+                          PriorSensitivityResult, WAICResult, audit, convergence,
+                          convergence_per_dataset, ess_from_history, ess_per_param,
+                          evidence_weights, grouped_refit_health, kfold, loo, loo_compare,
+                          loo_pit, mcse_per_param, metrics, model_weights,
+                          prior_sensitivity, rank_rhat_per_param, reloo, rhat_from_history,
+                          rhat_per_param, summary, tail_ess_per_param, trace_profile, waic,
+                          waic_compare)
 from .expressions import (eval_expression, expression_credible_interval,
                           expression_hdi, expression_samples,
                           walker_with_expression)
@@ -44,10 +51,14 @@ from .likelihoods import (create_log_likelihood_function, log_factorial,
                           log_poisson, make_noise_scale_likelihood,
                           make_student_t_likelihood, make_x_error_likelihood, pointwise_cdf,
                           pointwise_log_likelihood)
+from .nested import NestedResult, nested_per_dataset, nested_sample
 from .params import ParamSpec, map_params, normalize_params, reduce_params, scale_params
 from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_prior_spec,
                      bound_penalty, combine_priors, constraint_penalty, log_prior_flat,
                      make_bounds_prior, prior_bounds, resolve_prior_spec, unit_cube_wall)
+from .predictive import (Prediction, PredictiveDraws, posterior_predictive, ppc_pvalue,
+                         predict, prior_predictive)
+from .profile import ProfileResult, profile_likelihood
 from .smc import SMCResult, seed_prior_box, smc_sample
 from .walker_set import WalkerSet
 
@@ -77,4 +88,10 @@ __all__ = [
     "BatchedFit", "BatchedNVFit", "fit_nv_spectra_batched",
     "EvidenceResult", "LaplaceResult", "laplace_approx", "log_bayes_factor",
     "log_evidence", "SMCResult", "seed_prior_box", "smc_sample",
+    "WAICResult", "waic", "waic_compare", "LOOResult", "loo", "loo_compare",
+    "LOOPITResult", "loo_pit", "AuditResult", "audit", "PriorSensitivityResult",
+    "prior_sensitivity", "grouped_refit_health", "reloo", "KFoldResult", "kfold",
+    "model_weights", "evidence_weights", "NestedResult", "nested_sample",
+    "nested_per_dataset", "PredictiveDraws", "Prediction", "posterior_predictive",
+    "prior_predictive", "predict", "ppc_pvalue", "ProfileResult", "profile_likelihood",
 ]

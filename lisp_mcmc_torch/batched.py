@@ -56,10 +56,14 @@ def _pick(t, idx):
 class _DatasetView:
     """Read-only single-dataset view of one walker block of a
     :class:`BatchedFit` (JAX batched.py:45-91): ``spec``, ``dtype``,
-    ``terms`` (the block's own dataset), ``_history``, ``steps`` and
-    ``most_likely_params``, the history columns mapped through
-    :func:`fit.history_block_columns` (the whole ensemble, the retained
-    subsample, or, before any history, the live ensemble)."""
+    ``device``, ``terms`` (the block's own dataset), ``_history``,
+    ``steps`` and ``most_likely_params``, the history columns mapped
+    through :func:`fit.history_block_columns` (the whole ensemble, the
+    retained subsample, or, before any history, the live ensemble).  It is
+    the surface the criticism verbs read (``diagnostics.waic``, ``loo``,
+    ``loo_pit``, ``audit``, ``prior_sensitivity``, and
+    ``predictive.posterior_predictive``), so each runs on one dataset
+    unmodified."""
 
     group_ids = None
     _custom_log_post = None
@@ -68,6 +72,7 @@ class _DatasetView:
     def __init__(self, fit: "BatchedFit", s: int):
         self.spec = fit.spec
         self.dtype = fit.dtype
+        self.device = fit.device
         self.terms = [dataclasses.replace(fit.terms[0], dataset=fit._datasets[s])]
         self._fit = fit
         self._s = s
@@ -151,14 +156,14 @@ class BatchedFit(Walker):
                 return (_pick(data["const"], dataset_idx) - 0.5 * torch.sum(z * z)
                         + prior(p, None))
 
-            def batched_log_post(positions, data):
-                # (S, B, 1) parameter columns against (S, 1, P) data.
-                cols = spec.unflatten(positions.reshape(S, B, -1))
+            def blocks_lp(blocks, data):
+                # (S, m, 1) parameter columns against (S, 1, P) data.
+                cols = spec.unflatten(blocks)
                 pts = {k: v[..., None] for k, v in cols.items()}
                 z = (data["y"][:, None, :] - function(data["x"][:, None, :], pts)) \
                     * data["inv_sigma"][:, None, :]
-                lp = data["const"][:, None] - 0.5 * torch.sum(z * z, dim=-1) + prior(cols, None)
-                return lp.reshape(positions.shape[0])
+                return (data["const"][:, None] - 0.5 * torch.sum(z * z, dim=-1)
+                        + prior(cols, None))
         else:
             def as_dataset(fields):
                 return Dataset(n=int(fields["x"].shape[0]), **fields)
@@ -175,10 +180,14 @@ class BatchedFit(Walker):
 
             per_batch = torch.func.vmap(per_dataset)
 
-            def batched_log_post(positions, data):
-                """(S, B, d) blocks against the stacked datasets."""
-                return per_batch(positions.reshape(S, B, -1), data["ds"]).reshape(
-                    positions.shape[0])
+            def blocks_lp(blocks, data):
+                """(S, m, d) blocks against the stacked datasets."""
+                return per_batch(blocks, data["ds"])
+
+        def batched_log_post(positions, data):
+            return blocks_lp(positions.reshape(S, B, -1), data).reshape(positions.shape[0])
+
+        self._blocks_lp = blocks_lp
 
         group_ids = np.repeat(np.arange(S), B)
         init = np.stack([np.asarray([float(g[k]) for k in spec.keys], np.float64)
@@ -288,6 +297,61 @@ class BatchedFit(Walker):
         if not 0 <= s < self.n_datasets:
             raise IndexError(f"dataset {s} of {self.n_datasets}")
         return _DatasetView(self, s)
+
+    def _dataset_posterior(self, positions):
+        """``(S, m, d) -> (S, m)``: each dataset's posterior at its own m
+        points, for any m (``nested_per_dataset``'s refills), on the
+        batch's plain posterior."""
+        return self._blocks_lp(positions, self._posterior_data())
+
+    # ---------------------------------------------- per-dataset criticism
+
+    def _per_dataset(self, verb, **kwargs) -> list:
+        return [verb(self.dataset_view(s), **kwargs) for s in range(self.n_datasets)]
+
+    def waic_per_dataset(self, **kwargs) -> list:
+        """``diagnostics.waic`` on each dataset's view (JAX batched.py:374-379)."""
+        from .diagnostics import waic
+
+        return self._per_dataset(waic, **kwargs)
+
+    def loo_per_dataset(self, **kwargs) -> list:
+        """``diagnostics.loo`` on each dataset's view, Pareto k and all."""
+        from .diagnostics import loo
+
+        return self._per_dataset(loo, **kwargs)
+
+    def posterior_predictive_per_dataset(self, **kwargs) -> list:
+        """One ``PredictiveDraws`` a dataset (``predictive.posterior_predictive``)."""
+        from .predictive import posterior_predictive
+
+        return [d[0] for d in self._per_dataset(posterior_predictive, **kwargs)]
+
+    def loo_pit_per_dataset(self, **kwargs) -> list:
+        """``diagnostics.loo_pit`` on each dataset's view."""
+        from .diagnostics import loo_pit
+
+        return self._per_dataset(loo_pit, **kwargs)
+
+    def prior_sensitivity_per_dataset(self, prior=None, **kwargs) -> list:
+        """``diagnostics.prior_sensitivity`` on each dataset's view."""
+        from .diagnostics import prior_sensitivity
+
+        return self._per_dataset(prior_sensitivity, prior=prior, **kwargs)
+
+    def audit_per_dataset(self, **kwargs) -> list:
+        """``diagnostics.audit`` report cards, one a dataset."""
+        from .diagnostics import audit
+
+        return self._per_dataset(audit, **kwargs)
+
+    def nested_per_dataset(self, bounds=None, **kwargs) -> list:
+        """S nested-sampling runs as one stacked state
+        (``nested.nested_per_dataset``; JAX batched.py:464-473): one
+        ``NestedResult`` a dataset."""
+        from .nested import nested_per_dataset
+
+        return nested_per_dataset(self, bounds, **kwargs)
 
     def convergence(self, take: int | None = None, **kwargs) -> dict:
         """The batch's convergence verdict in one call (JAX

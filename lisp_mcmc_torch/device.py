@@ -39,8 +39,10 @@ KERNEL_SOURCES = {
     "microbench": "microbench.cu",
 }
 _HEADERS = ("models.cuh",)
+# --split-compile=0 runs the device optimizer's passes on every core: kernel
+# 1's unit instantiates 92 kernels, compiled one after another without it.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

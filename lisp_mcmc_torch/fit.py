@@ -23,8 +23,10 @@ demc, slice, mala, hmc, chees) and ``chees_trajectory``, ``optimize``
 custom posteriors (``log_posterior=``, ``batched_log_posterior=``),
 named priors (a ``priors.PriorSpec`` or ``MVGaussian`` as ``log_prior``),
 :func:`unit_cube_view`, per-walker ``aux`` data (the batched walker sets
-of ``batched.py``) and the evidence verbs (``log_evidence``,
-``smc_sample``, ``laplace_approx``).
+of ``batched.py``), the evidence verbs (``log_evidence``, ``smc_sample``,
+``laplace_approx``, ``nested_sample``) and the criticism verbs
+(``posterior_predictive``, ``ppc_pvalue``, ``prior_predictive``,
+``predict``, ``profile_likelihood``, ``prior_sensitivity``, ``audit``).
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -207,8 +209,11 @@ class Walker:
     ``log_likelihoods``, ``param_trace``, ``covariance_matrix``,
     ``l_matrix_estimate``, ``unique_steps``, ``forward_steps``,
     ``check_for_nonfinite``, ``diagnose_params``, ``with_expression``,
-    ``swap_rates``, ``summary``, ``metrics``, ``convergence``, and the
-    evidence verbs ``log_evidence``, ``smc_sample``, ``laplace_approx``.  Mutation
+    ``swap_rates``, ``summary``, ``metrics``, ``convergence``, the
+    evidence verbs ``log_evidence``, ``smc_sample``, ``laplace_approx``,
+    ``nested_sample``, and the criticism verbs ``posterior_predictive``,
+    ``ppc_pvalue``, ``prior_predictive``, ``predict``,
+    ``profile_likelihood``, ``prior_sensitivity``, ``audit``.  Mutation
     verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
     ``burn_steps``, ``keep_steps``, ``add_steps``, ``delete``, and
     ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.
@@ -969,6 +974,63 @@ class Walker:
         from .evidence import laplace_approx
 
         return laplace_approx(self, *args, **kwargs)
+
+    # ------------------------------------------------ criticism and nested
+
+    def posterior_predictive(self, *args, **kwargs):
+        """Replicated datasets from the posterior history
+        (:func:`predictive.posterior_predictive`)."""
+        from .predictive import posterior_predictive
+
+        return posterior_predictive(self, *args, **kwargs)
+
+    def ppc_pvalue(self, *args, **kwargs):
+        """Posterior predictive p-value of a data statistic
+        (:func:`predictive.ppc_pvalue`)."""
+        from .predictive import ppc_pvalue
+
+        return ppc_pvalue(self, *args, **kwargs)
+
+    def prior_predictive(self, *args, **kwargs):
+        """Replicated datasets from the prior (:func:`predictive.prior_predictive`)."""
+        from .predictive import prior_predictive
+
+        return prior_predictive(self, *args, **kwargs)
+
+    def predict(self, x, **kwargs):
+        """Posterior curve band or prediction interval at new abscissae
+        (:func:`predictive.predict`)."""
+        from .predictive import predict
+
+        return predict(self, x, **kwargs)
+
+    def nested_sample(self, bounds=None, **kwargs):
+        """Batched nested sampling, the evidence and posterior from one run
+        (:func:`nested.nested_sample`; its refills on kernel 1 on the GPU)."""
+        from .nested import nested_sample
+
+        return nested_sample(self, bounds, **kwargs)
+
+    def profile_likelihood(self, name: str, **kwargs):
+        """Profile-likelihood interval of one parameter
+        (:func:`profile.profile_likelihood`)."""
+        from .profile import profile_likelihood
+
+        return profile_likelihood(self, name, **kwargs)
+
+    def prior_sensitivity(self, prior=None, **kwargs):
+        """Power-scaling prior and likelihood sensitivity
+        (:func:`diagnostics.prior_sensitivity`)."""
+        from .diagnostics import prior_sensitivity
+
+        return prior_sensitivity(self, prior=prior, **kwargs)
+
+    def audit(self, **kwargs):
+        """Convergence, LOO-PIT and prior sensitivity in one report card
+        (:func:`diagnostics.audit`)."""
+        from .diagnostics import audit
+
+        return audit(self, **kwargs)
 
     def sampling_steps(self, n: int, kernel: str = "mala", **kwargs):
         """Cold sampling phase at T=1 with the given kernel (JAX

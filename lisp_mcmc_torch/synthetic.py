@@ -42,7 +42,8 @@ from .priors import Gaussian, LogNormal, PriorSpec
 from .roofline import FLAGSHIP, N_POINTS
 
 __all__ = ["dense_l", "global_fit", "nv_spectra", "NV_SPECTRA", "TWIN_PARAMS",
-           "twin_case", "write_nv_file", "nv_scan_grid", "line_evidence_case"]
+           "twin_case", "write_nv_file", "nv_scan_grid", "line_evidence_case",
+           "line_evidence_batch"]
 
 # test.lisp:58-70's starting point; datasets past the second start as it.
 _GLOBAL_START = {"scale": 1e-6, "linewidth": 100.0, "x0": 2700.0, "mix": 0.1,
@@ -166,6 +167,18 @@ def line_evidence_case(n: int = 334, sigma: float = 2.0, seed: int = 0) -> dict:
     return {"x": x, "y": y, "sigma": sigma, "truth": {"m": 2.0, "b": 1.0},
             "bounds": bounds, "beta_hat": {"m": float(beta[0]), "b": float(beta[1])},
             "cov": cov, "log_z": log_z}
+
+
+def line_evidence_batch(n_datasets: int = 16, n: int = 334, sigma: float = 2.0) -> dict:
+    """``n_datasets`` lines of :func:`line_evidence_case`'s recipe at seeds
+    0 .. n_datasets - 1 on one x grid, one box prior, each with its
+    closed-form log Z: ``{"x", "datasets" [(x, y), ...], "sigma", "truth",
+    "bounds", "log_z" (n_datasets,)}`` (a ``BatchedFit``'s inputs and
+    ``nested_per_dataset``'s answers)."""
+    cases = [line_evidence_case(n, sigma, seed) for seed in range(n_datasets)]
+    return {"x": cases[0]["x"], "datasets": [(c["x"], c["y"]) for c in cases],
+            "sigma": sigma, "truth": cases[0]["truth"], "bounds": cases[0]["bounds"],
+            "log_z": np.asarray([c["log_z"] for c in cases])}
 
 
 def write_nv_file(path, seed: int = 0):

@@ -25,7 +25,11 @@ LogNormal's x <= 0, at the same tolerances; the chain
 probe at rtol 1e-6 in float32 (the plain version rounds as the kernel
 does, fma included) and 1e-12 in float64 (the kernel's DFMA rounds once
 where the plain version rounds twice), with a check that the chains move
-far enough for those tolerances to see a missing iteration.
+far enough for those tolerances to see a missing iteration; nested
+sampling's refills on kernel 1 (its launches, a float64 run against the
+plain posterior's within 0.05 in log Z), kernel 1 at the profile's W =
+168 and the full-width refills' W = 32768, and no kernel launch inside
+the refit cross-validation and ``nested_per_dataset``.
 """
 
 import numpy as np
@@ -683,3 +687,67 @@ def test_chunk_kernel_at_a_stage_temperature_matches_plain(cuda):
                        on_stage=lambda info: chunks.append(info["chunks"]) and False)
     assert tck.chunk_rwm.launches - before == sum(chunks) == 2 * out.n_stages
     assert abs(out.log_z - c["log_z"]) < 1.0, (out, c["log_z"])
+
+
+def test_nested_sample_refills_run_kernel_1(cuda):
+    """``nested_sample`` on the line case at n_live = 4096: kernel 1 once
+    for the initial live set and once a refill move (W = k_batch = 1024),
+    plus the fit's probe; the same run on ``posterior_impl="plain"`` with
+    the same draws (float64, where kernel 1 agrees with the plain version
+    to ~1e-15, so the constraint decisions and the runs match) within 0.05
+    in log Z; kernel 1 against its plain version at W = k_batch in float32
+    and float64."""
+    runs = {}
+    for impl in ("auto", "plain"):
+        w, c = _line_walker(cuda, 1024, dtype=torch.float64,
+                            config=tfit.FitConfig(posterior_impl=impl))
+        before = tlk.fused_posterior.launches
+        res = w.nested_sample(c["bounds"], n_live=4096, seed=5)
+        runs[impl] = (res, tlk.fused_posterior.launches - before)
+        assert abs(res.log_z - c["log_z"]) <= max(0.25, 4 * res.log_z_err), (res, c["log_z"])
+    (a, la), (p, lp) = runs["auto"], runs["plain"]
+    assert la == 1 + 1 + a.n_iter * (8 * 2 + 16) and lp == 0
+    assert abs(a.log_z - p.log_z) < 0.05
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+        w, c = _line_walker(cuda, 1024, dtype=dtype)
+        post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+        pos = torch.as_tensor(a.samples[-1024:], dtype=dtype, device=cuda)
+        got = tlk.fused_posterior(pos, post)
+        assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= rtol
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("W", [168, 32768])
+def test_fused_kernel_at_profile_and_refill_widths(cuda, W, dtype, rtol):
+    """Kernel 1 at the profile likelihood's W = 21 x 8 = 168 rows and the
+    full-width nested refills' W = 32768, on the flagship and the line."""
+    for w in (_walker(cuda, W, dtype, 0.02), _line_walker(cuda, W, dtype=dtype)[0]):
+        post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+        pos = w.state.position
+        got = tlk.fused_posterior(pos, post)
+        assert got.shape == (W,)
+        assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= rtol
+
+
+def test_profile_runs_kernel_1_and_refits_run_none(cuda):
+    """``profile_likelihood``'s value-only rows launch kernel 1 (1 + rounds
+    calls at W = 168; the fit's probe ran on its steps); ``kfold``'s refits and
+    ``nested_per_dataset`` launch no kernel (per-walker aux: plain)."""
+    w, c = _line_walker(cuda, 1024)
+    w.adaptive_steps(2000, auto=None)
+    before = tlk.fused_posterior.launches
+    prof = w.profile_likelihood("m")
+    assert tlk.fused_posterior.launches - before == 1 + 2
+    assert prof.grid[0] < prof.at_max < prof.grid[-1]
+    before = (tlk.fused_posterior.launches, tck.chunk_rwm.launches)
+    kf = tfit.kfold(w, k=3, n_steps=400, walkers_per_dataset=16)
+    batch = synthetic.line_evidence_batch(3)
+    bf = tfit.BatchedFit(models.line, batch["datasets"], batch["truth"],
+                         data_error=batch["sigma"],
+                         log_prior=tfit.make_bounds_prior(batch["bounds"]),
+                         walkers_per_dataset=8, device=cuda)
+    res = bf.nested_per_dataset(n_live=512)
+    assert (tlk.fused_posterior.launches, tck.chunk_rwm.launches) == before
+    assert np.isfinite(kf.pointwise).all()
+    for r, z in zip(res, batch["log_z"]):
+        assert abs(r.log_z - z) <= max(0.25, 4 * r.log_z_err)
