@@ -10,7 +10,9 @@ walker sets (``BatchedFit``, ``BatchedNVFit``), the evidence layer
 (``log_evidence``, ``smc_sample``, ``laplace_approx``, ``nested_sample``)
 and model criticism (predictive checks, WAIC, PSIS-LOO, LOO-PIT, the
 audit, prior sensitivity, refit cross-validation, model weights, the
-profile likelihood) are ported too.
+profile likelihood), simulation-based calibration (``sbc_check``) and
+variational inference (``advi``, RealNVP ``flow_advi``, NeuTra, flow
+checkpoints) are ported too.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -59,7 +61,10 @@ from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_pri
 from .predictive import (Prediction, PredictiveDraws, posterior_predictive, ppc_pvalue,
                          predict, prior_predictive)
 from .profile import ProfileResult, profile_likelihood
+from .sbc import SBCResult, sbc_check
 from .smc import SMCResult, seed_prior_box, smc_sample
+from .variational import (FlowVIResult, NeutraResult, VIResult, advi, advi_per_dataset,
+                          flow_advi, flow_advi_per_dataset, load_flow)
 from .walker_set import WalkerSet
 
 __all__ = [
@@ -94,4 +99,6 @@ __all__ = [
     "model_weights", "evidence_weights", "NestedResult", "nested_sample",
     "nested_per_dataset", "PredictiveDraws", "Prediction", "posterior_predictive",
     "prior_predictive", "predict", "ppc_pvalue", "ProfileResult", "profile_likelihood",
+    "SBCResult", "sbc_check", "VIResult", "FlowVIResult", "NeutraResult", "advi",
+    "flow_advi", "advi_per_dataset", "flow_advi_per_dataset", "load_flow",
 ]

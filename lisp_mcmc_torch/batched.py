@@ -345,6 +345,23 @@ class BatchedFit(Walker):
 
         return self._per_dataset(audit, **kwargs)
 
+    def advi_per_dataset(self, *args, **kwargs) -> list:
+        """S per-dataset Gaussian variational fits in one batched loop
+        (:func:`variational.advi_per_dataset`; JAX batched.py:442-450): one
+        ``VIResult`` a dataset, each with its own Pareto-k-guarded evidence."""
+        from .variational import advi_per_dataset
+
+        return advi_per_dataset(self, *args, **kwargs)
+
+    def flow_advi_per_dataset(self, *args, **kwargs) -> list:
+        """S per-dataset RealNVP flows in one batched loop
+        (:func:`variational.flow_advi_per_dataset`; JAX batched.py:452-461):
+        one ``FlowVIResult`` a dataset, each with its own evidence,
+        checkpoint and NeuTra surface."""
+        from .variational import flow_advi_per_dataset
+
+        return flow_advi_per_dataset(self, *args, **kwargs)
+
     def nested_per_dataset(self, bounds=None, **kwargs) -> list:
         """S nested-sampling runs as one stacked state
         (``nested.nested_per_dataset``; JAX batched.py:464-473): one

@@ -19,7 +19,7 @@ from .device import resolve_device
 from .kernel import WalkerState
 
 __all__ = ["dataset_from_numpy", "state_from_numpy", "walker_from_numpy",
-           "batched_from_numpy"]
+           "batched_from_numpy", "flow_params_from_numpy"]
 
 _DATASET_CACHES = ("inv_sigma", "log_norm_const", "log_norm_const_point",
                    "log_fact_y")
@@ -174,3 +174,19 @@ def batched_from_numpy(fit, arrays: Mapping, datasets=None):
     fit.state = state
     fit.generator.manual_seed(seed)
     return fit
+
+
+def flow_params_from_numpy(params: Mapping, dtype=torch.float64, device=None) -> dict:
+    """A RealNVP flow's parameters as the port's forward pass takes them
+    (``variational._flow_forward_fn``): ``{"mu", "raw", "layers": [{"w1",
+    "b1", "w2", "b2", "w3", "b3"}, ...]}`` of tensors, from the JAX
+    package's ``FlowVIResult._params`` (the same nesting of arrays) or from
+    a checkpoint's flat arrays (``mu``, ``raw``, ``layer{k}_{name}``)."""
+    from .variational import _LAYER_LEAVES, _torch_params
+
+    if "layers" not in params:
+        n_layers = len({k.split("_", 1)[0] for k in params if k.startswith("layer")})
+        params = {"mu": params["mu"], "raw": params["raw"],
+                  "layers": [{n: params[f"layer{k}_{n}"] for n in _LAYER_LEAVES}
+                             for k in range(n_layers)]}
+    return _torch_params(params, dtype, resolve_device(device))

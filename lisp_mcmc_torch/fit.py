@@ -24,9 +24,10 @@ custom posteriors (``log_posterior=``, ``batched_log_posterior=``),
 named priors (a ``priors.PriorSpec`` or ``MVGaussian`` as ``log_prior``),
 :func:`unit_cube_view`, per-walker ``aux`` data (the batched walker sets
 of ``batched.py``), the evidence verbs (``log_evidence``, ``smc_sample``,
-``laplace_approx``, ``nested_sample``) and the criticism verbs
+``laplace_approx``, ``nested_sample``), the criticism verbs
 (``posterior_predictive``, ``ppc_pvalue``, ``prior_predictive``,
-``predict``, ``profile_likelihood``, ``prior_sensitivity``, ``audit``).
+``predict``, ``profile_likelihood``, ``prior_sensitivity``, ``audit``) and
+the variational verbs (``advi``, ``flow_advi``).
 
 The Walker lives on one device: ``device=None`` means the GPU, and the
 CPU is used only when asked for (``device="cpu"``).  Its random stream is
@@ -213,7 +214,8 @@ class Walker:
     evidence verbs ``log_evidence``, ``smc_sample``, ``laplace_approx``,
     ``nested_sample``, and the criticism verbs ``posterior_predictive``,
     ``ppc_pvalue``, ``prior_predictive``, ``predict``,
-    ``profile_likelihood``, ``prior_sensitivity``, ``audit``.  Mutation
+    ``profile_likelihood``, ``prior_sensitivity``, ``audit``, and the
+    variational verbs ``advi``, ``flow_advi``.  Mutation
     verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
     ``burn_steps``, ``keep_steps``, ``add_steps``, ``delete``, and
     ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.
@@ -974,6 +976,21 @@ class Walker:
         from .evidence import laplace_approx
 
         return laplace_approx(self, *args, **kwargs)
+
+    def advi(self, *args, **kwargs):
+        """Gaussian variational posterior and its importance-sampled
+        evidence (:func:`variational.advi`; the evaluation draws on kernel 1
+        on the GPU)."""
+        from .variational import advi
+
+        return advi(self, *args, **kwargs)
+
+    def flow_advi(self, *args, **kwargs):
+        """RealNVP normalizing-flow variational posterior, the curved-posterior
+        upgrade of :meth:`advi` (:func:`variational.flow_advi`)."""
+        from .variational import flow_advi
+
+        return flow_advi(self, *args, **kwargs)
 
     # ------------------------------------------------ criticism and nested
 

@@ -29,8 +29,13 @@ far enough for those tolerances to see a missing iteration; nested
 sampling's refills on kernel 1 (its launches, a float64 run against the
 plain posterior's within 0.05 in log Z), kernel 1 at the profile's W =
 168 and the full-width refills' W = 32768, and no kernel launch inside
-the refit cross-validation and ``nested_per_dataset``.
+the refit cross-validation and ``nested_per_dataset``; ADVI's evaluation
+draws on kernel 1 (W = 2048) against the plain posterior, and a float64
+``flow_advi`` on the card against the same run on the CPU on the same
+draws (rtol 1e-8 on the ELBO trace).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -751,3 +756,58 @@ def test_profile_runs_kernel_1_and_refits_run_none(cuda):
     assert np.isfinite(kf.pointwise).all()
     for r, z in zip(res, batch["log_z"]):
         assert abs(r.log_z - z) <= max(0.25, 4 * r.log_z_err)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_advi_evaluation_draws_run_kernel_1(cuda, dtype, rtol):
+    """``advi``'s value-only evaluation draws launch kernel 1 once, at W =
+    n_eval = 2048, and agree with the plain posterior on them; the same run
+    on the plain posterior (one generator stream) gives the same q and an
+    evidence within the kernel's rounding."""
+    from lisp_mcmc_torch import variational as tv
+
+    w, c = _line_walker(cuda, 4096, dtype=dtype)
+    w.adaptive_steps(1000, temperature=1.0, auto=None)
+    fused, seen = w._runner_cache["_fused"], []
+    w._runner_cache["_fused"] = lambda pos: (seen.append(pos), fused(pos))[1]
+    before = tlk.fused_posterior.launches
+    vi = w.advi(n_steps=300)
+    assert tlk.fused_posterior.launches - before == 1
+    assert [tuple(p.shape) for p in seen] == [(2048, 2)]
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    got = tlk.fused_posterior(seen[0], post)
+    assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(seen[0], post), post) <= rtol
+    w._runner_cache["_fused"] = fused
+    w.config = tfit.FitConfig(posterior_impl="plain")
+    plain = tv.advi(w, n_steps=300)
+    np.testing.assert_array_equal(plain._mu, vi._mu)
+    assert plain.log_z == pytest.approx(vi.log_z, abs=rtol * 1e3)
+    assert abs(vi.log_z - c["log_z"]) < 0.2
+
+
+def test_flow_advi_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """50 flow steps on the card and on the CPU, float64, from the same
+    ensemble and the same draws (replayed through ``variational._draws``):
+    the same ELBO trace and flow parameters."""
+    from lisp_mcmc_torch import variational as tv
+
+    rng = np.random.default_rng(0)
+    draws = [rng.standard_normal((64, 2)) for _ in range(50)] + [rng.standard_normal((256, 2))]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        w, _ = _line_walker(dev, 512, dtype=torch.float64)
+        pos = torch.as_tensor(np.random.default_rng(1).normal([2.0, 1.0], [0.4, 0.2],
+                                                              (512, 2)), device=dev)
+        w.state = dataclasses.replace(w.state, position=pos)
+        queue = list(draws)
+        monkeypatch.setattr(tv, "_draws", lambda g, shape, dtype, device:
+                            torch.as_tensor(queue.pop(0), dtype=dtype, device=device))
+        out[dev.type] = w.flow_advi(n_steps=50, n_samples=64, n_eval=256, n_layers=2,
+                                    hidden=16, seed=3)
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(g.elbo_trace, c.elbo_trace, rtol=1e-8)
+    np.testing.assert_allclose(g._params["mu"], c._params["mu"], rtol=1e-8, atol=1e-12)
+    for a, b in zip(g._params["layers"], c._params["layers"]):
+        for n in a:
+            np.testing.assert_allclose(a[n], b[n], rtol=1e-6, atol=1e-10)
+    assert g.log_z == pytest.approx(c.log_z, rel=1e-8)
