@@ -43,12 +43,12 @@ an H100) and the CUDA toolkit.  It
    history, then ``most_likely_step`` and ``ess_from_history``;
 10. runs the journey again with ``posterior_impl="chunk_kernel"``
     (``adaptive_steps(10000, collect_history=False)``);
-11. ``nv``: ``nv.fit_nv_file`` on a ';'-delimited file of three synthetic
-    spectra with W = 131072, one spectrum after another, the NV prior's
+11. ``nv``: ``nv.fit_nv_file`` on a ';'-delimited file of the first
+    synthetic spectrum (``NV_FILE_SPECTRA``) with W = 131072, the NV prior's
     bounds and declared constraints inside the fused kernel (nothing left
     for torch); gates on mu1, mu2, the field offset and the acceptance;
 12. ``nv_chunk``: the chunk kernel against its plain version on the NV
-    fit (its constraints in the kernel), then the same three spectra as a
+    fit (its constraints in the kernel), then the three spectra as a
     ``WalkerSet`` of ``nv.nv_walker`` on ``posterior_impl="chunk_kernel"``,
     ``adaptive_steps(40000, collect_history=False)``, held to the ``nv``
     gates;
@@ -69,8 +69,8 @@ an H100) and the CUDA toolkit.  It
 16. ``slice_poll``: one slice chunk per ``kernel.SLICE_POLL`` value (how
     often the slice loops read "every walker done" back), timed in turns,
     the same chains checked on injected draws;
-17. profiles two chunks of the default path and two 20-step slice chunks
-    (wall clock, device time by kernel, the device's busy share);
+17. profiles chunks of the default path (wall clock, device time by
+    kernel, the device's busy share);
 18. ``gradient``: an rwm warm-in from the ensemble journeys' start, then
     ``sampling_steps`` with mala (2000 steps), hmc (400) and chees (400)
     on the same walkers, their gradients by autograd through the plain
@@ -104,17 +104,17 @@ an H100) and the CUDA toolkit.  It
     with history on the default path: the flagship's gates with lp(gen)
     under the same prior, one kernel-1 launch a step, nothing of the prior
     left for torch), then on ``posterior_impl="chunk_kernel"`` (10000
-    steps without history, the same gates); ``optimize(400, rounds=2)`` on
-    the journey's walker and ``optimize(400, rounds=4)`` on the global
+    steps without history, the same gates); ``optimize(400, rounds=1)`` on
+    the journey's walker and ``optimize(400, rounds=1)`` on the global
     journey's (no walker falls, the best lp does not fall and stays >=
     lp(gen) - 5; ms a step, peak memory, the lp gained); a
     ``unit_cube_view`` of the journey's walker, its posterior identity
     on 1024 walkers (1e-5) and, after ``adaptive_steps(2000,
     temperature=1)``, its theta-image's median x0 within 1 % of the fit's;
-22. ``batched_nv``: a 32 x 32 scan grid of NV spectra
+22. ``batched_nv``: a 16 x 16 scan grid of NV spectra
     (``synthetic.nv_scan_grid``) as one ``nv.BatchedNVFit`` of 128
-    walkers a spectrum (W = 131072, float32) on the plain batched
-    posterior (checked: no kernel launches, by design), the nv phase's
+    walkers a spectrum (W = 32768, float32) on the plain batched
+    posterior (checked: no kernel launches, by design), a
     40000-step anneal and 4000 rwm steps at T = 1, then ``sampling_steps``
     with stretch (200 steps)
     and mala (50) on the same batch and ``laplace_per_dataset``; gates
@@ -142,7 +142,7 @@ an H100) and the CUDA toolkit.  It
     ``ppc_pvalue``, ``predict`` on 2048 points, ``prior_predictive``,
     ``profile_likelihood("x0")`` (kernel 1 on its 168 rows),
     ``prior_sensitivity`` with ``synthetic.flagship_prior_spec``,
-    ``kfold(k=10)`` and ``reloo`` of the 4 highest Pareto k (4000 anneal
+    ``kfold(k=10)`` and ``reloo`` of the 4 highest Pareto k (2000 anneal
     steps; their refits on the plain batched posterior), and
     ``nested_per_dataset`` on 16
     line cases (``synthetic.line_evidence_batch``); gates loo within 2.0
@@ -163,7 +163,14 @@ an H100) and the CUDA toolkit.  It
     plain batched posterior) and its understated-noise control; reports
     each verb's seconds and launches and the optimizer's ms, kernels and
     device busy share a step (its steps are CUDA graphs);
-26. prints the ``kernels`` summary line (each kernel's time, launches on
+26. ``pooling``: ``compare_pooling`` over ``synthetic.global_fit(8)``'s
+    spectra (the flagship model each, pooled linewidth, x0 and mix) at W =
+    8192 (1024 a dataset for the independent fit), its complete-pooling
+    fit on kernel 1 over 8 terms; kernel 1 against its plain version at
+    that shape, the float32 hierarchical posterior against float64,
+    profiled hierarchical rwm and mala chunks; gates in its constants
+    (``pooling_compare`` is also its CPU rehearsal);
+27. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
     width, with its launches on the ensemble journeys, at the rescue's
@@ -172,7 +179,8 @@ an H100) and the CUDA toolkit.  It
     with its launches on the evidence journeys, and the line twin at the
     nested refills' W = 32768 with its launches there, the line twin at
     the VI evaluation draws' W = 2048 with its launches on the line's VI
-    path; kernel 2 with the
+    path, and over the pooled fit's 8 terms with its launches on the
+    pooling phase; kernel 2 with the
     named prior, with its launches on its chunk-kernel journey, and at an
     SMC stage's temperature, with its launches on the SMC journey; kernel
     1's rows with the kernel-only ms and the plan), the card line and,
@@ -194,6 +202,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -224,6 +233,11 @@ PROBE_CONVERGED = ("exp",)
 N_GLOBAL = 30000
 N_GLOBAL_CHUNK = 30000
 N_NV = 40000
+# Spectra of the sequential NV journey: the first of the three since the
+# pooling phase took its share of the script's time (the three took 135.4
+# to 171.3 s; at 20000 steps a spectrum the second ended at acceptance
+# 0.484, outside the gate).  nv_chunk still fits all three.
+NV_FILE_SPECTRA = 1
 # The NV gates, fixed before the first chip run: mu1 and mu2 of the best
 # point, and the field offset, within 0.5 MHz of the generating values
 # (the dips are 20x the noise), acceptance in 0.2-0.4.
@@ -334,21 +348,31 @@ KERNEL1_SASS = {(t, r): f"_ZN3lmt22fused_posterior_kernelI{t}Li{r}ELi0EE"
                 for t in "fd" for r in (1, 2, 4)}
 
 
-def _sass_kernel1_loads():
-    """``{"f32_R1": {instruction: count}, ...}``: the shared (LDS*),
-    generic (LD.*) and async-copy (LDGSTS*) loads of kernel 1's
-    lorder_mixed_bg kernels; None without cuobjdump.  Every LDS is a load
-    of the point loop (the staging is cp.async, the walkers' rows and the
-    prior's tables are global loads)."""
-    import re
+def _start_kernel1_sass(out_file):
+    """Start ``cuobjdump -sass`` of kernel 1's lorder_mixed_bg kernels
+    (``-fun``: the whole library's SASS took ~40 s to dump), writing to
+    ``out_file``; returns the process, or None without cuobjdump.  It runs
+    beside the next phases (its ~28 s are host work the GPU phases do not
+    wait on); :func:`phase_kernel1_sass` reads it."""
     import shutil
     from lisp_mcmc_torch.device import _target
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(_target("fused_posterior"))], check=True,
-                          capture_output=True, text=True).stdout
+    names = ",".join(f"{prefix}EvNS_9FusedArgsIT_EE" for prefix in KERNEL1_SASS.values())
+    return subprocess.Popen([tool, "-sass", "-fun", names, str(_target("fused_posterior"))],
+                            stdout=out_file, stderr=subprocess.DEVNULL)
+
+
+def _sass_kernel1_loads(sass):
+    """``{"f32_R1": {instruction: count}, ...}``: the shared (LDS*),
+    generic (LD.*) and async-copy (LDGSTS*) loads of kernel 1's
+    lorder_mixed_bg kernels in the SASS text ``sass``.  Every LDS is a
+    load of the point loop (the staging is cp.async, the walkers' rows and
+    the prior's tables are global loads)."""
+    import re
+
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split()[0]
@@ -362,11 +386,15 @@ def _sass_kernel1_loads():
     return counts
 
 
-def phase_kernel1_sass():
+def phase_kernel1_sass(proc, out_file):
     """Kernel 1's shared loads in SASS, by width: the float32 point loop
-    must read its packed records with 128-bit LDS."""
-    counts = _sass_kernel1_loads()
-    if counts is not None:
+    must read its packed records with 128-bit LDS.  ``proc`` and
+    ``out_file`` are :func:`_start_kernel1_sass`'s (None: no cuobjdump)."""
+    counts = None
+    if proc is not None:
+        check(proc.wait() == 0, f"kernel 1 SASS: cuobjdump exited {proc.returncode}")
+        out_file.seek(0)
+        counts = _sass_kernel1_loads(out_file.read().decode())
         check(len(counts) == len(KERNEL1_SASS), f"kernel 1 SASS: found {sorted(counts)}")
         for r in (1, 2, 4):
             check(counts[f"f32_R{r}"].get("LDS.128", 0) > 0,
@@ -917,9 +945,10 @@ def phase_chunk_wide(ceilings, ptxas):
 
 
 def phase_nv(ceilings, counters, ptxas):
-    """The NV pipeline: fit_nv_file on three synthetic spectra, one after
-    another, the prior's bounds and declared constraints inside the fused
-    kernel; times the fused kernel on the first spectrum's ensemble."""
+    """The NV pipeline: fit_nv_file on a file of NV_FILE_SPECTRA synthetic
+    spectra, one after another, the prior's bounds and declared constraints
+    inside the fused kernel; times the fused kernel on the first
+    spectrum's ensemble."""
     import tempfile
     import torch
     import lisp_mcmc_torch as mfit
@@ -929,7 +958,8 @@ def phase_nv(ceilings, counters, ptxas):
                                                    posterior_census, prepare_fused_terms)
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = synthetic.write_nv_file(os.path.join(tmp, "nv-spectra.txt"))
+        path = synthetic.write_nv_file(os.path.join(tmp, "nv-spectra.txt"),
+                                       n_spectra=NV_FILE_SPECTRA)
         for c in counters:
             c.launches = 0
         torch.cuda.synchronize()
@@ -939,7 +969,7 @@ def phase_nv(ceilings, counters, ptxas):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    check(len(walkers) == len(synthetic.NV_SPECTRA), "nv: wrong number of spectra")
+    check(len(walkers) == NV_FILE_SPECTRA, "nv: wrong number of spectra")
     check(launches["fused_posterior"] > 0, "nv: the fused kernel never launched")
     spectra = []
     for i, (w, truth) in enumerate(zip(walkers, synthetic.NV_SPECTRA)):
@@ -1610,7 +1640,9 @@ def phase_chees_d24():
         w.state, _ = run(w.state, True, True, True, generator=w.generator)
     torch.cuda.synchronize()
     warm_secs = time.perf_counter() - t0
-    res, pos = _kernel_ess(w, "chees", 2)
+    # one timed history chunk (two until the pooling phase took its share of
+    # the script's time; the variances then read 1.6 % from the target's)
+    res, pos = _kernel_ess(w, "chees", 1)
     var = pos.reshape(-1, d).var(dim=0).double().cpu().numpy()
     rel = np.abs(var / np.diag(cov) - 1.0)
     out = {"phase": "chees_d24", "d": d, "W": W, "warm_seconds": warm_secs, **res,
@@ -1744,9 +1776,15 @@ def phase_blocked(counters):
 N_PRIOR_REGION = 1000
 N_PRIOR_JOURNEY = 30000
 N_PRIOR_CHUNK = 10000
-PRIOR_OPTIMIZE = (400, 2)
-GLOBAL_OPTIMIZE = (400, 4)
-N_UNIT_CUBE = 2000
+# 1 round (2 until the pooling phase took its share of the script's time:
+# 8.1 s, the best lp +0.003)
+PRIOR_OPTIMIZE = (400, 1)
+# 1 round on the global walker since the pooling phase took its share of
+# the script's time (4 rounds: 22.4 s, the best lp unchanged).
+GLOBAL_OPTIMIZE = (400, 1)
+# 1000 steps (2000 until the pooling phase took its share of the script's
+# time: 9.5 s, the view's median x0 0.15 % from the fit's)
+N_UNIT_CUBE = 1000
 UNIT_CUBE_WALKERS = 1024
 UNIT_CUBE_RTOL = 1e-5
 
@@ -1971,12 +2009,12 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
     ], w
 
 
-# The batched NV journey: a 32 x 32 scan grid of spectra
-# (synthetic.nv_scan_grid) as one BatchedNVFit of 128 walkers a spectrum
-# (W = 131072), float32, on the plain batched posterior (neither kernel
-# reads a per-walker dataset); the anneal is the nv phase's 40000 steps (a
-# 30000-step anneal left 3 of 1024 spectra above 0.4 acceptance after the
-# cold steps, max 0.503, on an H100).
+# The batched NV journey: a BATCHED_GRID scan grid of spectra
+# (synthetic.nv_scan_grid) as one BatchedNVFit of 128 walkers a spectrum,
+# float32, on the plain batched posterior (neither kernel
+# reads a per-walker dataset); the anneal is 40000 steps (a 30000-step
+# anneal left 3 of 1024 spectra above 0.4 acceptance after the cold steps,
+# max 0.503, on an H100).
 # Gates, fixed before the first chip run: each spectrum's best mu1, mu2
 # and field offset within NV_TOL_MHZ of its truth; each spectrum's
 # acceptance in 0.2-0.4 over 1000 steps (5 chunks at the cold finish's
@@ -1993,7 +2031,12 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
 # chunks with the in-band refresh, then the ten-chunk cold finish), the
 # recipe after an anneal, and the gate reads the acceptance after that;
 # the acceptance right after the anneal is reported beside it.
-BATCHED_GRID = (32, 32)
+# 16 x 16 spectra, W = 32768 (32 x 32, W = 131072, until the pooling phase
+# took its share of the script's time: 156-190 s; each spectrum's fit, 128
+# walkers over 401 points, and every per-spectrum gate are as before, over
+# fewer spectra; the phase's ms a step and busy share are not comparable
+# across the change)
+BATCHED_GRID = (16, 16)
 BATCHED_WALKERS = 128
 N_BATCHED = 40000
 N_BATCHED_COLD = 4000
@@ -2004,7 +2047,7 @@ BATCHED_PROFILE_STEPS = 20
 
 
 def phase_batched_nv(counters):
-    """``BatchedNVFit`` on a 32 x 32 scan grid: the anneal (ms a step,
+    """``BatchedNVFit`` on a ``BATCHED_GRID`` scan grid: the anneal (ms a step,
     chain-steps/sec, the device's busy share from two profiled chunks),
     the per-spectrum gates, short stretch and mala runs on the same batch
     (ms a step), ``laplace_per_dataset``, peak memory and the launches
@@ -2025,7 +2068,7 @@ def phase_batched_nv(counters):
                           seed=0, dtype=torch.float32, device=DEVICE,
                           config=mfit.FitConfig(auto=None))
     W = fit.n_walkers
-    check(W == W_FLAGSHIP, f"batched_nv: W = {W}")
+    check(W == rows * cols * BATCHED_WALKERS, f"batched_nv: W = {W}")
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
@@ -2400,14 +2443,15 @@ CRITICISM_TAKE = 2000
 CRITICISM_GRID = 2048
 CRITICISM_PRIOR_DRAWS = 256
 CRITICISM_KFOLD = 10
-# kfold's anneal (then max(2000, half) mala steps): 4000, as reloo's, for
+# kfold's anneal (then max(2000, half) mala steps): 2000, as reloo's, for
 # the script's time limit (8000 took 38.1 s, with the kfold elpd 4.5 from
-# loo's within a band of 28.4; 4000: 3.9 from it).
-CRITICISM_KFOLD_STEPS = 4000
+# loo's within a band of 28.4; 4000: 3.9 from it, 17.0 s).
+CRITICISM_KFOLD_STEPS = 2000
 CRITICISM_RELOO = 4
-# reloo's anneal (then max(2000, half) mala steps): half kfold's default
-# 8000, to keep the script inside its time limit (8000 took 36.9 s)
-CRITICISM_RELOO_STEPS = 4000
+# reloo's anneal (then max(2000, half) mala steps): a quarter of kfold's
+# default 8000, to keep the script inside its time limit (8000 took 36.9
+# s, 4000 16.3 s)
+CRITICISM_RELOO_STEPS = 2000
 CRITICISM_DATASETS = 16
 CRITICISM_NESTED_LIVE = 512
 CRITICISM_TOL = {"loo_waic": 2.0, "kfold_se": 2.0, "x0": 0.01, "nested": 0.25}
@@ -2645,7 +2689,9 @@ VI_FLOW_PER_DATASET = {"n_steps": 1200, "n_samples": 64}
 VI_DATASET_TOL = {"gauss": 0.1, "flow": 0.2}
 VI_SBC = {"n_sims": 128, "walkers_per_dataset": 64, "n_steps": 3000, "seed": 0}
 VI_SBC_CONTROL_P = 1e-3
-VI_PROFILE_STEPS = 400
+# 100 steps a profiled optimizer run (400 until the pooling phase took its
+# share of the script's time; a readout, run three times a verb)
+VI_PROFILE_STEPS = 100
 VI_SBC_PROFILE_STEPS = 20
 
 
@@ -2951,6 +2997,229 @@ def phase_variational(ceilings, counters, ptxas):
                                        "bound_ms", "bound_by", "opmix_bound_ms")}}
 
 
+# The pooling phase: compare_pooling on test.lisp's lineshape over 8
+# spectra (synthetic.global_fit(8)'s data: 334 points each, the flagship's
+# lineshape with each spectrum's own scale and background; the flagship
+# model for every spectrum, sigma 1e-7, float32), pooled = the three
+# parameters the truth shares.  The pooled fit is kernel 1 over 8 terms at
+# d = 6, W = 8192; the partial fit the plain hierarchical posterior (d =
+# 2*3 + 8*6 = 54, dense proposal) at W = 8192; the independent fit a
+# BatchedFit of 8 x 1024.
+# The guess is test.lisp's start (synthetic._GLOBAL_START's six flagship
+# keys: linewidth 17.4 % low, x0 3.04 % low, and mix 0.1 where the truth
+# is 3.1415: 0.10 rad from it modulo pi, since a sign of scale turns the
+# angle by pi).  The population is declared from the guess (the default
+# hyperpriors are "for exploration", hierarchical.py): mu ~
+# Gaussian(guess, |guess|), the default, and tau ~ LogNormal(log(1e-3
+# |guess|), 0.5), a spread of ~0.1 % of each parameter across the grid
+# (the truth's is 0); the default tau ~ LogNormal(log(|guess|/4), 1)
+# would let each spectrum's x0 wander ~700 from the population's, which
+# pools nothing where the truth shares x0 exactly.  The W = 1024
+# rehearsal in both packages (tests/pooling_witness.py, PERF.md PR 13)
+# lands alike: x0 0.15-0.16 % from the truth, the linewidth mean 13.8-14.1
+# % low and mix 0.1025 rad from it modulo pi (a single spectrum's best
+# linewidth scatters ~15 % about the truth, and the population mean moves
+# slowly from a tight population's start), the partial model 107-298 elpd
+# below the independent one.  Gates, fixed before this start's first run
+# on the card and never widened:
+# - the three models score the same 2672 points, the weights sum to 1
+#   (1e-6);
+# - complete pooling loses decisively: its elpd below both others' by more
+#   than 2 paired SEs (the spectra's scales differ up to 100x);
+# - the partial fit's best hyper mu against roofline.FLAGSHIP within
+#   POOL_MU_BAND: x0 within 1 % (relative), a third of the start's
+#   offset, so the gate reads the fit's recovery; the linewidth within 29
+#   % (relative) and mix within 0.21 rad modulo pi, twice the worse
+#   package's rehearsal error rounded up: these two hold the start too, so
+#   they read only that the fit stays on its branch and does not wander;
+# - the card's float32 hierarchical posterior within POOL_F32_RTOL of a
+#   float64 evaluation of the same inputs on the card at 64 walkers
+#   (relative to max(|lp|, 1));
+# - kernel 1 against its plain version at the pooled fit's shape within
+#   RTOL["float32"], the global rows' bound;
+# - launches over compare_pooling: kernel 1 n + 1 (the pooled fit's steps
+#   and its equivalence probe) plus the pooled fit's cold mala rescue, 2 a
+#   200-step chunk; kernel 2 none.  The partial and independent fits run
+#   neither kernel (plain by design) and PSIS-LOO reads the plain
+#   per-point likelihood.
+POOL_SPECTRA = 8
+POOL_KEYS = ("linewidth", "x0", "mix")
+POOL_WALKERS = 8192
+POOL_PER_DATASET = 1024
+POOL_STEPS = 4000
+POOL_MAX_SAMPLES = 256
+POOL_MU_BAND = {"linewidth": 0.29, "x0": 0.01, "mix": 0.21}
+POOL_F32_RTOL = 1e-4
+POOL_TAU_SHARE = 1e-3
+POOL_TAU_SIGMA = 0.5
+POOL_F64_WALKERS = 64
+POOL_PROFILE_STEPS = 20
+
+
+def pooling_inputs():
+    """The pooling phase's spectra (``synthetic.global_fit``), guess and
+    declared population (``{key: (mu prior, tau prior)}``)."""
+    import numpy as np
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch import synthetic
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    g = synthetic.global_fit(POOL_SPECTRA)
+    guess = {k: synthetic._GLOBAL_START[k] for k in FLAGSHIP}
+    hyper = {k: (mfit.Gaussian(guess[k], abs(guess[k])),
+                 mfit.LogNormal(float(np.log(POOL_TAU_SHARE * abs(guess[k]))), POOL_TAU_SIGMA))
+             for k in POOL_KEYS}
+    return g, guess, hyper
+
+
+def pooling_mu_err(mu):
+    """The population means' distance from roofline.FLAGSHIP, as
+    POOL_MU_BAND reads it: relative for the linewidth and x0, in radians
+    modulo pi for mix."""
+    import math
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    turn = (mu["mix"] - FLAGSHIP["mix"]) % math.pi
+    return {"linewidth": abs(mu["linewidth"] / FLAGSHIP["linewidth"] - 1.0),
+            "x0": abs(mu["x0"] / FLAGSHIP["x0"] - 1.0), "mix": min(turn, math.pi - turn)}
+
+
+def pooling_compare(device, n_walkers=POOL_WALKERS, walkers_per_dataset=POOL_PER_DATASET):
+    """``compare_pooling`` on the phase's inputs at ``n_walkers`` (and
+    ``walkers_per_dataset`` for the independent fit) on ``device``, float32:
+    ``(result, summary)``, the summary a dict of what the gates read.  The
+    phase calls it on the card; ``tests/pooling_witness.py``, the CPU
+    rehearsal its gates came from, calls it beside the JAX package."""
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch.models import lorder_mixed_bg
+
+    g, guess, hyper = pooling_inputs()
+    t0 = time.perf_counter()
+    r = mfit.compare_pooling(lorder_mixed_bg, g["data"], guess, data_error=1e-7,
+                             pooled=list(POOL_KEYS), hyper=hyper, n_steps=POOL_STEPS,
+                             n_walkers=n_walkers, walkers_per_dataset=walkers_per_dataset,
+                             max_samples=POOL_MAX_SAMPLES, seed=0, dtype=torch.float32,
+                             device=device)
+    h = r.fits["partial"]
+    hp = h.hyper_params("best")
+    summary = {
+        "W": n_walkers, "walkers_per_dataset": walkers_per_dataset, "steps": POOL_STEPS,
+        "guess": {k: guess[k] for k in POOL_KEYS},
+        "compare_seconds": time.perf_counter() - t0, "fit_seconds": r.seconds,
+        "fits": {k: {"d": f.spec.ndim, "W": f.n_walkers, "acceptance": f.acceptance()}
+                 for k, f in r.fits.items()},
+        "elpd": r.elpd, "se": r.se, "weights": r.weights, "best": r.best,
+        "decisive": r.decisive, "pairwise": r.pairwise,
+        "n_points": {k: v.n_points for k, v in r.results.items()},
+        "hyper_best": hp, "hyper_median": h.hyper_params("median"),
+        "mu_err": pooling_mu_err(hp["mu"]),
+        "x0_per_dataset": [p["x0"] for p in h.params_per_dataset("best")],
+        "partial_best_lp": h.most_likely_step()[0]}
+    return r, summary
+
+
+def phase_pooling(ceilings, counters, ptxas):
+    """compare_pooling on the card (see the constants above): each fit's
+    seconds, the launches, kernel 1 at the pooled 8-term shape against its
+    plain version (the kernels line's ``fused_posterior_pooled8`` row), the
+    float32 hierarchical posterior against float64, and 20-step rwm and
+    mala chunks of the hierarchical fit profiled (ms a step, torch kernels a
+    step, the device's busy share)."""
+    import dataclasses
+    import torch
+    import lisp_mcmc_torch as mfit
+    from lisp_mcmc_torch.models import lorder_mixed_bg
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP, N_POINTS
+
+    t_phase = time.perf_counter()
+    # 1. compare_pooling, the launches counted over all three fits
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    r, summary = pooling_compare(DEVICE)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    out = {"phase": "pooling", "spectra": POOL_SPECTRA, **summary, "launches": launches}
+    h, w_pool = r.fits["partial"], r.fits["pooled"]
+
+    # 2. kernel 1 at the pooled fit's shape (8 terms x 334 points, d = 6)
+    post = prepare_fused_terms(w_pool.terms, w_pool.spec, torch.float32)
+    check(post is not None and len(post.terms) == POOL_SPECTRA,
+          "pooling: the pooled fit is outside kernel 1's coverage")
+    pos = w_pool.state.position.contiguous()
+    rel, abs_err = _fused_check(post, pos, RTOL["float32"], "pooling fused 8 terms")
+    kernel1 = {"W": int(pos.shape[0]), "terms": len(post.terms), "max_rel_err": rel,
+               "max_abs_err": abs_err, **_kernel1(pos, post, ptxas),
+               "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(pos, post), 20),
+               **_bounds(posterior_census(post), 1, fused_bytes(post, pos.shape[0]),
+                         ceilings, walkers=int(pos.shape[0]))}
+    out["kernel1"] = kernel1
+
+    # 3. the card's float32 hierarchical posterior against float64
+    g, guess, hyper = pooling_inputs()
+    h64 = mfit.HierarchicalFit(lorder_mixed_bg, g["data"], guess, data_error=1e-7,
+                               pooled=list(POOL_KEYS), hyper=hyper,
+                               n_walkers=POOL_F64_WALKERS, seed=0,
+                               dtype=torch.float64, device=DEVICE)
+    idx = torch.linspace(0, POOL_WALKERS - 1, POOL_F64_WALKERS).long().to(DEVICE)
+    at = h.state.position[idx]
+    lp32 = h._log_post(at).double()
+    lp64 = h64._log_post(at.double())
+    f32_rel = float(((lp32 - lp64).abs() / lp64.abs().clamp_min(1.0)).max())
+    out["float32_vs_float64"] = {"walkers": POOL_F64_WALKERS, "max_rel_err": f32_rel,
+                                 "lp64_max": float(lp64.max())}
+
+    # 4. where a hierarchical step's time goes: 20-step rwm and mala chunks
+    prof = {}
+    for kind in ("rwm", "mala"):
+        prev = h.config
+        h.config = dataclasses.replace(prev, kernel=kind, chunk_size=POOL_PROFILE_STEPS)
+        try:
+            run = h._runner(with_history=False)
+        finally:
+            h.config = prev
+        p = _profile_chunks(f"pooling_hierarchical_{kind}_chunk", run, h.state, h.generator,
+                            args=(True, False, True), steps=POOL_PROFILE_STEPS)
+        prof[kind] = {"ms_per_step": p["chunk_wall_ms"] / POOL_PROFILE_STEPS,
+                      "kernels_per_step": p["kernels_per_chunk"] / POOL_PROFILE_STEPS,
+                      "device_busy_share": p["device_busy_share"]}
+    out["hierarchical_step"] = prof
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    # the gates
+    n_real = POOL_SPECTRA * N_POINTS
+    check(set(out["n_points"].values()) == {n_real},
+          f"pooling: the models scored {out['n_points']}, want {n_real} points each")
+    check(abs(sum(r.weights.values()) - 1.0) <= 1e-6, f"pooling: weights {r.weights}")
+    for other in ("partial", "independent"):
+        d = r.pairwise[f"pooled_vs_{other}"]
+        check(d["elpd_diff"] < -2.0 * d["se_diff"],
+              f"pooling: complete pooling does not lose decisively to {other} ({d})")
+    mu = out["hyper_best"]["mu"]
+    for k in POOL_KEYS:
+        check(out["mu_err"][k] <= POOL_MU_BAND[k],
+              f"pooling: the partial fit's mu of {k} {mu[k]} is {out['mu_err'][k]} from "
+              f"{FLAGSHIP[k]}, the band {POOL_MU_BAND[k]}")
+    check(f32_rel <= POOL_F32_RTOL,
+          f"pooling: float32 hierarchical posterior {f32_rel} from float64")
+    mala_chunks = -(-max(2000, POOL_STEPS // 2) // 200)
+    want = POOL_STEPS + 1 + 2 * mala_chunks
+    check(launches["fused_posterior"] == want and launches["chunk_rwm"] == 0,
+          f"pooling: compare_pooling launched {launches}, want {want} of kernel 1 (the "
+          "pooled fit) and none of kernel 2")
+
+    return {"name": "fused_posterior_pooled8", "route": "cuda", "library_ms": None,
+            "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+            "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117", "W": kernel1["W"],
+            "terms": kernel1["terms"], "launches": want,
+            **{k: kernel1[k] for k in ("max_abs_err", "ms", "kernel_ms", "plan", "plain_ms",
+                                       "bound_ms", "bound_by", "opmix_bound_ms")}}
+
+
 def _slice_noise(W, steps, cfg, generator):
     """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
     G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
@@ -3008,10 +3277,12 @@ def phase_slice_poll(w):
 
 def _profile_chunks(name, runner, state, generator, args=(True, True, False), steps=200):
     """Wall clock of two warm chunks of ``runner``, then the device time by
-    kernel (torch.profiler) of two more and the host's time blocked in
+    kernel (torch.profiler) of one more and the host's time blocked in
     device-to-host reads (``aten::_local_scalar_dense``: a chees step's
     leapfrog count, a slice loop's poll); emits the ``name`` phase and
-    returns it."""
+    returns it.  One profiled chunk, not two, since the pooling phase took
+    its share of the script's time: the profiler's own processing of a
+    slice chunk's events took ~40 s for two."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3028,9 +3299,9 @@ def _profile_chunks(name, runner, state, generator, args=(True, True, False), st
     chunks(2)
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunks(2)
+        chunks(1)
     # device-side events only: a CPU op's entry repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3 / 2, e.count / 2)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -3042,28 +3313,23 @@ def _profile_chunks(name, runner, state, generator, args=(True, True, False), st
            "device_busy_ms": device_ms if rows else None,
            "device_busy_share": device_ms / wall_ms if rows else None,
            "kernels_per_chunk": sum(r[2] for r in rows),
-           "host_sync_ms": sum(e.cpu_time_total for e in syncs) / 1e3 / 2,
-           "host_syncs_per_chunk": sum(e.count for e in syncs) / 2,
+           "host_sync_ms": sum(e.cpu_time_total for e in syncs) / 1e3,
+           "host_syncs_per_chunk": sum(e.count for e in syncs),
            "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]}
     emit(out)
     return out
 
 
-def phase_profile(slice_walker):
-    """Where a chunk spends its time: the default path's (200 steps), and a
-    20-step slice chunk at the slice journey's end."""
-    import dataclasses
+def phase_profile():
+    """Where a chunk of the default path (200 steps) spends its time.  The
+    20-step slice chunk's profile left when the pooling phase took its share
+    of the script's time (25.2 s, most of it the profiler's own processing;
+    ``slice_poll`` still times the slice loops)."""
     import torch
-    from lisp_mcmc_torch import kernel
 
     w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
     _profile_chunks("profile_default_chunk", w._runner(with_history=True), w.state,
                     w.generator)
-    sw = slice_walker
-    cfg = dataclasses.replace(sw.config, kernel="slice", chunk_size=SLICE_POLL_STEPS)
-    run, _ = kernel.build_chunk_runner(sw._batched_posterior(), sw.ndim, cfg)
-    _profile_chunks("profile_slice_chunk", run, sw.state, sw.generator,
-                    args=(True, True, True), steps=SLICE_POLL_STEPS)
 
 
 def main():
@@ -3088,10 +3354,18 @@ def main():
     t_start = time.perf_counter()
     phase_card()
     ptxas = phase_build()
-    ceilings, probe_row = phase_roofline(counters)
-    phase_kernel1_sass()
-    kernels = [phase_fused(ceilings, ptxas), phase_chunk(ceilings, ptxas)]
-    phase_twins(ceilings, ptxas)
+    sass_file = tempfile.TemporaryFile()
+    sass_proc = _start_kernel1_sass(sass_file)
+    try:
+        ceilings, probe_row = phase_roofline(counters)
+        kernels = [phase_fused(ceilings, ptxas), phase_chunk(ceilings, ptxas)]
+        phase_twins(ceilings, ptxas)
+        phase_kernel1_sass(sass_proc, sass_file)
+    finally:
+        if sass_proc is not None and sass_proc.poll() is None:
+            sass_proc.kill()
+            sass_proc.wait()
+        sass_file.close()
     global_walker, global_lp_gen = phase_global(ceilings, counters, ptxas)
     phase_chunk_wide(ceilings, ptxas)
     main_launches, journey_walker = phase_journey(counters)
@@ -3102,7 +3376,7 @@ def main():
     phase_tempered(ceilings, counters, ptxas)
     ensemble, slice_walker = phase_ensemble(counters)
     phase_slice_poll(slice_walker)
-    phase_profile(slice_walker)
+    phase_profile()
     rescue_row = phase_gradient(ceilings, counters, ptxas, ensemble)
     phase_chees_d24()
     phase_blocked(counters)
@@ -3114,6 +3388,7 @@ def main():
     phase_criticism(counters, journey_walker, prior_walker)
     del journey_walker, prior_walker
     vi_row = phase_variational(ceilings, counters, ptxas)
+    pool_row = phase_pooling(ceilings, counters, ptxas)
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -3138,6 +3413,8 @@ def main():
     kernels.extend(evidence_rows)
     # kernel 1 (the line twin) at the VI evaluation draws' W = 2048
     kernels.append(vi_row)
+    # kernel 1 over compare_pooling's complete-pooling fit: 8 terms, d = 6
+    kernels.append(pool_row)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

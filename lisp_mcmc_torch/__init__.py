@@ -6,7 +6,8 @@ model, any number of terms), and the roofline's ceiling probe
 (``roofline.py``), are CUDA C++ written for Hopper (``csrc/``), built
 with ``nvcc`` at first use.  A named prior (``PriorSpec``,
 ``MVGaussian``) runs inside both kernels as a declared table.  Batched
-walker sets (``BatchedFit``, ``BatchedNVFit``), the evidence layer
+walker sets (``BatchedFit``, ``BatchedNVFit``), partial pooling
+(``HierarchicalFit``, ``compare_pooling``), the evidence layer
 (``log_evidence``, ``smc_sample``, ``laplace_approx``, ``nested_sample``)
 and model criticism (predictive checks, WAIC, PSIS-LOO, LOO-PIT, the
 audit, prior sensitivity, refit cross-validation, model weights, the
@@ -46,6 +47,7 @@ from .expressions import (eval_expression, expression_credible_interval,
 from .fit import Walker, make_adam_sgdr_runner, mcmc_fit, unit_cube_view, walker_create
 from .io import file_specs, get_filename, read_file_data
 from .kernel import FitConfig, WalkerState, init_state, temperature_schedule
+from .hierarchical import HierarchicalFit
 from .nv import BatchedNVFit, fit_nv_spectra_batched
 from .likelihoods import (create_log_likelihood_function, log_factorial,
                           log_likelihood_normal, log_likelihood_normal_cutoff,
@@ -55,6 +57,7 @@ from .likelihoods import (create_log_likelihood_function, log_factorial,
                           pointwise_log_likelihood)
 from .nested import NestedResult, nested_per_dataset, nested_sample
 from .params import ParamSpec, map_params, normalize_params, reduce_params, scale_params
+from .pooling import PoolingComparison, compare_pooling
 from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_prior_spec,
                      bound_penalty, combine_priors, constraint_penalty, log_prior_flat,
                      make_bounds_prior, prior_bounds, resolve_prior_spec, unit_cube_wall)
@@ -90,7 +93,8 @@ __all__ = [
     "make_bounds_prior", "prior_bounds", "Uniform", "Gaussian", "LogNormal",
     "MVGaussian", "PriorSpec", "as_prior_spec", "resolve_prior_spec",
     "unit_cube_wall", "WalkerSet",
-    "BatchedFit", "BatchedNVFit", "fit_nv_spectra_batched",
+    "BatchedFit", "BatchedNVFit", "fit_nv_spectra_batched", "HierarchicalFit",
+    "PoolingComparison", "compare_pooling",
     "EvidenceResult", "LaplaceResult", "laplace_approx", "log_bayes_factor",
     "log_evidence", "SMCResult", "seed_prior_box", "smc_sample",
     "WAICResult", "waic", "waic_compare", "LOOResult", "loo", "loo_compare",

@@ -35,7 +35,7 @@ import torch
 
 from .data import Dataset
 from .device import resolve_device
-from .fit import Walker, _Term, _host, history_block_columns
+from .fit import Walker, _Term, _host, default_dtype, history_block_columns
 from .likelihoods import log_likelihood_normal, resolve_likelihood
 from .params import ParamSpec
 from .priors import log_prior_flat
@@ -51,6 +51,18 @@ def _pick(t, idx):
     indexing by a tensor reads its value, which ``torch.func.hessian``
     under ``vmap`` refuses)."""
     return torch.index_select(t, 0, idx.reshape(1))[0]
+
+
+def _posterior_stack(dsets, gaussian: bool) -> dict:
+    """A stacked posterior's data: the datasets' ``(S, P)`` stacks, all of
+    them as ``{"ds": fields}``, or for the Gaussian z-sum path only x, y,
+    inv_sigma and the (S,) constants (``BatchedFit`` and
+    ``hierarchical.HierarchicalFit``)."""
+    stack = {k: torch.stack([getattr(ds, k) for ds in dsets]) for k in _DATASET_FIELDS}
+    if not gaussian:
+        return {"ds": stack}
+    return {"x": stack["x"], "y": stack["y"], "inv_sigma": stack["inv_sigma"],
+            "const": stack["log_norm_const"]}
 
 
 class _DatasetView:
@@ -118,7 +130,7 @@ class BatchedFit(Walker):
                  seed: int = 0, walker_jitter: float = 0.02, dtype=None, config=None,
                  device=None):
         device = resolve_device(device)
-        dtype = dtype or torch.float32
+        dtype = dtype or default_dtype()
         S = len(datasets)
         if S == 0:
             raise ValueError("no datasets provided")
@@ -201,13 +213,7 @@ class BatchedFit(Walker):
             batched_log_posterior=batched_log_post)
 
     def _posterior_stack(self, dsets):
-        """The posterior's data: the datasets' ``(S, P)`` stacks (the z-sum
-        path reads x, y, inv_sigma and the (S,) constants)."""
-        stack = {k: torch.stack([getattr(ds, k) for ds in dsets]) for k in _DATASET_FIELDS}
-        if not self._gaussian:
-            return {"ds": stack}
-        return {"x": stack["x"], "y": stack["y"], "inv_sigma": stack["inv_sigma"],
-                "const": stack["log_norm_const"]}
+        return _posterior_stack(dsets, self._gaussian)
 
     def _set_datasets(self, dsets):
         """Install S datasets of one padded length in place of the batch's

@@ -19,7 +19,7 @@ from .device import resolve_device
 from .kernel import WalkerState
 
 __all__ = ["dataset_from_numpy", "state_from_numpy", "walker_from_numpy",
-           "batched_from_numpy", "flow_params_from_numpy"]
+           "batched_from_numpy", "hierarchical_from_numpy", "flow_params_from_numpy"]
 
 _DATASET_CACHES = ("inv_sigma", "log_norm_const", "log_norm_const_point",
                    "log_fact_y")
@@ -173,6 +173,42 @@ def batched_from_numpy(fit, arrays: Mapping, datasets=None):
                           for f in datasets])
     fit.state = state
     fit.generator.manual_seed(seed)
+    return fit
+
+
+def hierarchical_from_numpy(fit, arrays: Mapping):
+    """Install a hierarchical fit's state in a port
+    :class:`~lisp_mcmc_torch.hierarchical.HierarchicalFit` built on the same
+    inputs, and return it.
+
+    ``arrays``: :func:`state_from_numpy`'s arrays (one adaptation group;
+    absent ``chees``, ``age`` and ``anneal_step`` read as zeros, ``key``
+    seeds the generator through :func:`_seed_from_key`), optionally
+    ``keys`` (the walk-space columns, which must be the fit's) and the
+    history as ``history_positions`` (T, W', d) and ``history_logprobs``
+    (T, W'), e.g. a JAX fit's ``_history()``.
+    """
+    keys = arrays.get("keys")
+    if keys is not None and tuple(keys) != fit.spec.keys:
+        raise ValueError(f"hierarchical_from_numpy: the state's columns are "
+                         f"{tuple(keys)}, the fit's {fit.spec.keys}")
+    state, seed = state_from_numpy(arrays, dtype=fit.dtype, device=fit.device)
+    if state.l_matrix.shape[0] != 1 or state.position.shape[1] != fit.spec.ndim:
+        raise ValueError(f"hierarchical_from_numpy: want one adaptation group over "
+                         f"d = {fit.spec.ndim}, got L {tuple(state.l_matrix.shape)}")
+    fit.state = state
+    fit.n_walkers = int(state.position.shape[0])
+    fit.generator.manual_seed(seed)
+    hist = arrays.get("history_positions")
+    fit.reset()
+    if hist is not None:
+        np_dtype = torch.empty((), dtype=fit.dtype).numpy().dtype
+        pos = np.array(hist, np_dtype)
+        lp = np.array(arrays["history_logprobs"], np_dtype)
+        if pos.ndim != 3 or pos.shape[2] != fit.spec.ndim or lp.shape != pos.shape[:2]:
+            raise ValueError(f"hierarchical_from_numpy: history of {pos.shape} positions "
+                             f"and {lp.shape} logprobs")
+        fit._hist_positions, fit._hist_logprobs = [pos], [lp]
     return fit
 
 

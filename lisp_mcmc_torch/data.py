@@ -115,6 +115,12 @@ class Dataset:
 
         return cls(x=t(x), y=t(y), sigma=t(sigma), mask=t(mask), n=n)
 
+    def astype(self, dtype) -> "Dataset":
+        """The dataset in another floating type (JAX data.py:128): x, y,
+        sigma and mask converted, the cached terms recomputed in it."""
+        return Dataset(x=self.x.to(dtype), y=self.y.to(dtype), sigma=self.sigma.to(dtype),
+                       mask=self.mask.to(dtype), n=self.n)
+
 
 def _depth(tree) -> int:
     """Depth of the first element (``get-depth``, mcmc-fitting.lisp:761-772)."""

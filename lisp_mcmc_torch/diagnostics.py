@@ -1032,6 +1032,16 @@ def _batched_refit(walker, name: str, holdouts, n_steps: int, temperature: float
                                  walkers_per_dataset, burn_fraction, max_samples, seed)
 
 
+def _refuse_pending_refit(walker, name: str) -> None:
+    """A fit whose own refit cross-validation is not ported yet carries the
+    reason as ``_refit_pending``; :func:`reloo` and :func:`kfold` raise it
+    before any refit (never through :func:`_global_batched_refit`, which
+    would refit another model)."""
+    pending = getattr(walker, "_refit_pending", None)
+    if pending:
+        raise ValueError(f"{name}: {pending}")
+
+
 def _refit_n_points(walker) -> int:
     """Length of the real-point axis the holdouts index (``_n_real_points``
     where a structured ensemble declares it)."""
@@ -1051,6 +1061,7 @@ def reloo(walker, result: LOOResult | None = None, k_threshold: float = 0.7,
     p(y_i | theta_s^(-i))`` with k = 0; a block that fails the collapse
     gate keeps its PSIS value and flag (``refit_failed``).  More than
     ``max_refits`` flags means a misspecified model, and raises."""
+    _refuse_pending_refit(walker, "reloo")
     if result is None:
         result = loo(walker, max_samples=max_samples)
     flagged = np.where(result.pareto_k > k_threshold)[0]
@@ -1110,6 +1121,7 @@ def kfold(walker, k: int = 10, folds=None, n_steps: int = 8000, temperature: flo
     against the posterior that never saw it, ``elpd_i = log mean_s p(y_i |
     theta_s^(-fold(i)))``.  ``folds``: explicit fold ids (length n, 0..k-1)
     in place of the seeded round-robin over a permutation."""
+    _refuse_pending_refit(walker, "kfold")
     n = _refit_n_points(walker)
     if folds is not None:
         folds = np.asarray(folds, np.int64)

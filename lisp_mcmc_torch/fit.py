@@ -56,8 +56,16 @@ from .ops.loglik_kernel import (fused_posterior, kernel_coverage, posterior_rel_
 from .params import ParamSpec, normalize_params
 from .priors import as_prior_spec, log_prior_flat, resolve_prior, unit_cube_wall
 
-__all__ = ["Walker", "walker_create", "mcmc_fit", "respace_ladder", "unit_cube_view",
-           "make_adam_sgdr_runner", "history_block_columns"]
+__all__ = ["Walker", "walker_create", "mcmc_fit", "default_dtype", "respace_ladder",
+           "unit_cube_view", "make_adam_sgdr_runner", "history_block_columns"]
+
+
+def default_dtype():
+    """The floating type the constructors take when given none: float32,
+    the card's working type.  JAX ``fit.default_dtype`` (fit.py:52) reads
+    its x64 switch; the port has none, so this is float32 always and a
+    float64 fit asks for it (``dtype=torch.float64``)."""
+    return torch.float32
 
 
 def _force_list(item):
@@ -255,7 +263,7 @@ class Walker:
         self.terms = terms
         self.spec = spec
         self.config = config or FitConfig()
-        self.dtype = dtype or torch.float32
+        self.dtype = dtype or default_dtype()
         self.n_walkers = int(n_walkers)
         self._runner_cache: dict[Any, Any] = {}
         self.group_ids = None if group_ids is None else np.asarray(group_ids, np.int64)
@@ -1421,7 +1429,7 @@ def walker_create(*, function, data, params, data_error=None, log_likelihood=Non
     ``device=None`` means the GPU.
     """
     device = resolve_device(device)
-    dtype = dtype or torch.float32
+    dtype = dtype or default_dtype()
     functions = _force_list(function)
     cleaned = clean_data(data, len(functions))
     errors = clean_data_error(data_error, cleaned)

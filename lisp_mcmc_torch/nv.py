@@ -18,7 +18,9 @@ Port of ``lisp_mcmc_tpu/nv.py`` but its hierarchical fit:
     (:class:`BatchedNVFit`, :func:`fit_nv_spectra_batched`), the batched
     walker set of ``batched.py`` with the pipeline's defaults.
 
-``HierarchicalNVFit`` waits for ``hierarchical.py``.
+``HierarchicalNVFit`` waits for the refit-CV family of the hierarchical
+fit (ROADMAP Queue 1 step 3b); ``hierarchical.HierarchicalFit`` itself is
+ported.
 """
 
 from __future__ import annotations

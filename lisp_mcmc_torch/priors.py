@@ -484,6 +484,52 @@ def _norm_key(k):
     return k[1:] if isinstance(k, str) and k.startswith(":") else k
 
 
+def _kind_grouped(dists: Mapping, keys, walls: bool, dtype, device) -> Callable:
+    """:meth:`PriorSpec.vector_log_prior`'s evaluator: the Gaussian and
+    LogNormal densities as :meth:`Gaussian._smooth_log_pdf` and
+    :meth:`LogNormal._smooth_log_pdf` compute them, one gathered column
+    block a kind, then the walls of the Uniform and truncated ones."""
+    kw = dict(dtype=dtype, device=device)
+    rows = {Gaussian: [], LogNormal: []}
+    edges = []
+    for i, k in enumerate(keys):
+        d = dists.get(k)
+        if d is None:
+            continue
+        if type(d) in rows:
+            rows[type(d)].append((i, d.mu, d.sigma, -math.log(d.sigma)
+                                  - 0.5 * math.log(2.0 * math.pi) - d._log_mass))
+        if walls and (isinstance(d, Uniform) or d.truncated):
+            edges.append((i, *d.support))
+
+    def table(entries):
+        if not entries:
+            return None
+        cols = list(zip(*entries))
+        return (torch.as_tensor(cols[0], device=device),
+                *(torch.as_tensor(c, **kw) for c in cols[1:]))
+
+    gauss, lognorm, wall = table(rows[Gaussian]), table(rows[LogNormal]), table(edges)
+
+    def log_prior(theta):
+        total = torch.zeros(theta.shape[:-1], dtype=theta.dtype, device=theta.device)
+        if gauss is not None:
+            idx, mu, sig, c = gauss
+            z = (theta[..., idx] - mu) / sig
+            total = total + torch.sum(c - 0.5 * z * z, dim=-1)
+        if lognorm is not None:
+            idx, mu, sig, c = lognorm
+            lx = torch.log(torch.clamp_min(theta[..., idx], torch.finfo(theta.dtype).tiny))
+            z = (lx - mu) / sig
+            total = total + torch.sum(c - lx - 0.5 * z * z, dim=-1)
+        if wall is not None:
+            idx, low, high = wall
+            total = total + torch.sum(bound_penalty(theta[..., idx], low, high), dim=-1)
+        return total
+
+    return log_prior
+
+
 class PriorSpec(Mapping):
     """A named prior: one independent 1-D distribution per parameter.
 
@@ -508,6 +554,7 @@ class PriorSpec(Mapping):
                     f"PriorSpec: parameter {key!r} must be a distribution or "
                     f"a (low, high) tuple, got {v!r}")
         self._dists = out
+        self._vec_cache = {}
 
     def __getitem__(self, k):
         return self._dists[k]
@@ -563,14 +610,29 @@ class PriorSpec(Mapping):
             total = total + d.log_pdf(params[k])
         return _col(total)
 
-    def installed_vec(self, theta, keys):
+    def installed_vec(self, theta, keys, *, walls: bool = False):
         """The installed density terms summed at ``(..., d)`` parameter
-        vectors: ``(...)``."""
+        vectors: ``(...)``; with ``walls`` the truncation walls too, so the
+        sum is :meth:`as_log_prior`'s (:meth:`vector_log_prior`)."""
+        self._ordered(keys)
         theta = _col(theta)
-        total = torch.zeros(theta.shape[:-1], dtype=theta.dtype, device=theta.device)
-        for i, d in enumerate(self._ordered(keys)):
-            total = total + d.installed_log_pdf(theta[..., i])
-        return total
+        return self.vector_log_prior(keys, walls=walls, dtype=theta.dtype,
+                                     device=theta.device)(theta)
+
+    def vector_log_prior(self, keys, *, walls: bool = True, dtype=torch.float64,
+                         device=None) -> Callable:
+        """``theta (..., d) -> (...)`` over the columns named ``keys``: each
+        distribution's installed log density (and, with ``walls``, its wall)
+        summed, evaluated a distribution kind at a time on gathered columns,
+        so a few torch kernels serve any d.  A column the spec has no
+        distribution for adds nothing (a flat parameter).  The gathered
+        tables are built once for each ``(keys, walls, dtype, device)``."""
+        device = torch.device("cpu") if device is None else torch.device(device)
+        cache_key = (tuple(keys), walls, dtype, device)
+        if cache_key not in self._vec_cache:
+            self._vec_cache[cache_key] = _kind_grouped(self._dists, keys, walls, dtype,
+                                                       device)
+        return self._vec_cache[cache_key]
 
     def transform(self, u, keys):
         """Inverse-CDF map: ``(..., d)`` unit-cube points to parameter

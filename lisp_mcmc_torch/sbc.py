@@ -1,7 +1,8 @@
 """Simulation-based calibration: validate the whole fitting pipeline.
 
-Port of ``lisp_mcmc_tpu/sbc.py`` (``sbc_check``; the hierarchical study
-waits for the port of ``hierarchical.py``).  SBC (Talts et al. 2018) draws
+Port of ``lisp_mcmc_tpu/sbc.py`` (``sbc_check``; the hierarchical study,
+``sbc_check_hierarchical``, waits for the hierarchical fit's grouped joint
+walker, ROADMAP Queue 1 step 3b).  SBC (Talts et al. 2018) draws
 parameters from the prior, simulates a dataset from each, fits every
 dataset, and ranks each truth among its posterior draws: a calibrated
 pipeline gives uniform ranks, and any defect (a biased kernel, an unburnt

@@ -181,13 +181,14 @@ def line_evidence_batch(n_datasets: int = 16, n: int = 334, sigma: float = 2.0) 
             "log_z": np.asarray([c["log_z"] for c in cases])}
 
 
-def write_nv_file(path, seed: int = 0):
-    """Write :func:`nv_spectra` as a ';'-delimited file (frequency, then one
-    column per spectrum), the layout ``nv.fit_nv_file`` reads."""
+def write_nv_file(path, seed: int = 0, n_spectra: int | None = None):
+    """Write :func:`nv_spectra` (the first ``n_spectra`` of them, default
+    all) as a ';'-delimited file (frequency, then one column per spectrum),
+    the layout ``nv.fit_nv_file`` reads."""
     x, ys = nv_spectra(seed)
     with open(path, "w") as f:
         for i in range(x.shape[0]):
-            f.write(";".join(repr(float(c[i])) for c in (x, *ys)) + "\n")
+            f.write(";".join(repr(float(c[i])) for c in (x, *ys[:n_spectra])) + "\n")
     return path
 
 

@@ -32,7 +32,11 @@ plain posterior's within 0.05 in log Z), kernel 1 at the profile's W =
 the refit cross-validation and ``nested_per_dataset``; ADVI's evaluation
 draws on kernel 1 (W = 2048) against the plain posterior, and a float64
 ``flow_advi`` on the card against the same run on the CPU on the same
-draws (rtol 1e-8 on the ELBO trace).
+draws (rtol 1e-8 on the ELBO trace); the hierarchical posterior of the
+pooling phase's shape (8 spectra x 334 points, d = 54) in float32 on the
+card against float64 on the CPU (1e-4 of max(|lp|, 1)), launching
+neither kernel, and kernel 1 at ``compare_pooling``'s pooled 8-term shape
+(W = 8192) against its plain version.
 """
 
 import dataclasses
@@ -811,3 +815,49 @@ def test_flow_advi_on_the_card_matches_the_cpu(cuda, monkeypatch):
         for n in a:
             np.testing.assert_allclose(a[n], b[n], rtol=1e-6, atol=1e-10)
     assert g.log_z == pytest.approx(c.log_z, rel=1e-8)
+
+
+def _pooling_grid():
+    """chip_smoke's pooling phase input: 8 flagship-lineshape spectra of 334
+    points, the flagship model for each, test.lisp's start as the guess."""
+    g = synthetic.global_fit(8)
+    guess = {k: synthetic._GLOBAL_START[k] for k in FLAGSHIP}
+    return g["data"], guess
+
+
+def test_hierarchical_posterior_on_the_card_matches_float64(cuda):
+    """The batched hierarchical posterior (d = 2*3 + 8*6 = 54 over W x 8 x
+    334) in float32 on the card against float64 on the CPU at the same
+    positions: relative 1e-4 of max(|lp|, 1)."""
+    data, guess = _pooling_grid()
+    kw = dict(data_error=1e-7, pooled=["linewidth", "x0", "mix"], n_walkers=8192, seed=0)
+    g32 = tfit.HierarchicalFit(lorder_mixed_bg, data, guess, dtype=torch.float32,
+                               device=cuda, **kw)
+    c64 = tfit.HierarchicalFit(lorder_mixed_bg, data, guess, dtype=torch.float64,
+                               device="cpu", **{**kw, "n_walkers": 16})
+    assert g32.spec.ndim == 54 and g32._log_post is not None
+    pos = g32.state.position[::128].double().cpu()
+    got = g32._log_post(pos.to(device=cuda, dtype=torch.float32)).double().cpu()
+    want = c64._log_post(pos)
+    rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert rel <= 1e-4, rel
+    before = (tlk.fused_posterior.launches, tck.chunk_rwm.launches)
+    g32.adaptive_steps(200, auto=None)
+    assert (tlk.fused_posterior.launches, tck.chunk_rwm.launches) == before
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_fused_kernel_pooled_eight_terms_matches_plain(cuda, dtype, rtol):
+    """compare_pooling's complete-pooling fit: the flagship model over 8
+    spectra as 8 terms sharing d = 6, W = 8192, on kernel 1."""
+    data, guess = _pooling_grid()
+    w = tfit.walker_create(function=[lorder_mixed_bg] * 8, data=data, params=guess,
+                           data_error=1e-7, n_walkers=8192, walker_jitter=0.05,
+                           dtype=dtype, device=cuda)
+    post = tlk.prepare_fused_terms(w.terms, w.spec, dtype)
+    assert post is not None and len(post.terms) == 8
+    pos = w.state.position
+    before = tlk.fused_posterior.launches
+    got = tlk.fused_posterior(pos, post)
+    assert tlk.fused_posterior.launches == before + 1
+    assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= rtol
