@@ -56,7 +56,7 @@ an H100) and the CUDA toolkit.  It
     half-ensembles, W/2 = 65536 walkers (the ungrouped low half, and the
     low halves of 8 groups flattened), against its plain version, timed
     in turns against the full launch, with both bounds at each width;
-14. ``tempered``: ``tempered_steps(10000, rungs=8, t_max=50)`` from the
+14. ``tempered``: ``tempered_steps(6000, rungs=8, t_max=50)`` from the
     test.lisp start (8 rungs as adaptation groups, replica swaps at every
     chunk end, the fused kernel once a step), held to the flagship's best
     lp and x0 gates and to one launch a step; records the swap rates and
@@ -72,7 +72,7 @@ an H100) and the CUDA toolkit.  It
 17. profiles chunks of the default path (wall clock, device time by
     kernel, the device's busy share);
 18. ``gradient``: an rwm warm-in from the ensemble journeys' start, then
-    ``sampling_steps`` with mala (2000 steps), hmc (400) and chees (400)
+    ``sampling_steps`` with mala (2000 steps), hmc (200) and chees (400)
     on the same walkers, their gradients by autograd through the plain
     posterior (checked: no kernel-1 launch inside one) and the rescue's
     two half-rounds a chunk on kernel 1 at W/2 (checked: the launches);
@@ -100,7 +100,7 @@ an H100) and the CUDA toolkit.  It
     the named-prior journey's ``covariance_matrix()``, timed beside the
     flat prior; kernel 2 against its plain version on one chunk with the
     spec; the named-prior journey (``walker_create(log_prior=spec)``,
-    ``sample_region(n=1000)``, ``adaptive_steps(30000, temperature=10)``
+    ``sample_region(n=1000)``, ``adaptive_steps(20000, temperature=10)``
     with history on the default path: the flagship's gates with lp(gen)
     under the same prior, one kernel-1 launch a step, nothing of the prior
     left for torch), then on ``posterior_impl="chunk_kernel"`` (10000
@@ -142,7 +142,7 @@ an H100) and the CUDA toolkit.  It
     ``ppc_pvalue``, ``predict`` on 2048 points, ``prior_predictive``,
     ``profile_likelihood("x0")`` (kernel 1 on its 168 rows),
     ``prior_sensitivity`` with ``synthetic.flagship_prior_spec``,
-    ``kfold(k=10)`` and ``reloo`` of the 4 highest Pareto k (2000 anneal
+    ``kfold(k=10)`` and ``reloo`` of the 4 highest Pareto k (1000 anneal
     steps; their refits on the plain batched posterior), and
     ``nested_per_dataset`` on 16
     line cases (``synthetic.line_evidence_batch``); gates loo within 2.0
@@ -170,7 +170,30 @@ an H100) and the CUDA toolkit.  It
     that shape, the float32 hierarchical posterior against float64,
     profiled hierarchical rwm and mala chunks; gates in its constants
     (``pooling_compare`` is also its CPU rehearsal);
-27. prints the ``kernels`` summary line (each kernel's time, launches on
+27. ``hier_refit``: ``nv.HierarchicalNVFit`` over a 4 x 4 scan grid (16
+    pixels, d = 100, block proposals), W = 4096, from the pixels' own
+    guesses: 6000 rwm steps at T = 10, then 300 chees; gates each pixel's
+    mu1 and field offset and the pooled linewidth's population mean; then
+    ``kfold(k=4)``, ``reloo`` of the highest Pareto k and ``logo()`` on
+    it, each the joint posterior refit as K groups of one walker (plain):
+    every refit through its collapse gate, every elpd finite, kfold within
+    a stated number of nats of reloo, no kernel launch; reports each
+    verb's seconds, a profiled 20-step mala chunk of reloo's refit and its
+    posterior in float32 against float64.  The fit and each verb run in
+    processes of their own (``hier_worker``), started before
+    ``batched_nv`` and overlapping it (all are host-paced), the fit handed
+    from one to the others by ``checkpoint.hierarchical_save`` (``hier_refit_fit`` and
+    ``hier_refit_cv`` are also its CPU witness's,
+    ``tests/hier_refit_witness.py``);
+28. ``hier_sbc``: ``sbc_check_hierarchical`` at JAX
+    tests/test_sbc_hierarchical.py's settings and its Cauchy control (each
+    in a worker process, as ``hier_refit``'s jobs), with that file's gates;
+    then the ``checkpoint`` step: a flagship walker
+    saved on the card mid-run, reloaded and run on (kernel 1, then one
+    chunk of kernel 2) beside the walker it came from, bit for bit equal,
+    and the ``hier_refit`` fit through ``hierarchical_save`` /
+    ``hierarchical_load`` with its log posterior bit for bit equal;
+29. prints the ``kernels`` summary line (each kernel's time, launches on
     its path, bound at the published peaks, op-mix bound at the measured
     float32 ceilings, plain and library times; kernel 1 also at half
     width, with its launches on the ensemble journeys, at the rescue's
@@ -1226,7 +1249,7 @@ def phase_half_width(ceilings, ptxas):
 
 # The tempered journey (README's second recipe): steps, rungs and the
 # hottest rung's temperature, from the test.lisp start (x0 = 2200).
-N_TEMPERED = 10000
+N_TEMPERED = 6000       # 10000 until the hierarchical phases took their share
 TEMPERED_RUNGS, TEMPERED_T_MAX = 8, 50.0
 
 
@@ -1288,7 +1311,8 @@ def phase_tempered(ceilings, counters, ptxas):
 # run is read as posterior samples.
 # slice 500 steps (1000 before the variational phase took its share of the
 # script's time limit; its x0 std was within 0.3 % of stretch's at 1000,
-# and 0.4 % at 500; the gates are unchanged).
+# and 0.4 % at 500; the gates are unchanged; at 250 its evaluations, 79 a
+# step while the ensemble spreads, broke the 2 x 38 a step bound).
 N_ENSEMBLE = {"stretch": 3000, "demc": 3000, "slice": 500}
 ENSEMBLE_JITTER = 1e-3
 # Gates, fixed before the first chip run.
@@ -1376,8 +1400,10 @@ N_GRADIENT = {"mala": 2000, "hmc": 200, "chees": 400}
 # mean; kernel 1 against autograd on the rescued walkers within the fused
 # kernel's float32 tolerance.
 GRADIENT_BAND_SLACK = 0.1
-# bench.py's ESS recipe (bench.py:288-313): history chunks timed at T = 1.
-GRADIENT_ESS_CHUNKS = {"mala": 4, "chees": 2}
+# bench.py's ESS recipe (bench.py:288-313): history chunks timed at T = 1
+# (mala 4 and chees 2 until the hierarchical phases took their share of
+# the script's time; a readout, not a gate).
+GRADIENT_ESS_CHUNKS = {"mala": 2, "chees": 1}
 # Steps of the profiled chunks (the chees host sync): five keep the
 # profiler's trace small (an hmc step is ~1100 kernels).
 GRADIENT_PROFILE_STEPS = 5
@@ -1634,10 +1660,10 @@ def phase_chees_d24():
     t0 = time.perf_counter()
     for _ in range(20):
         w.state, _ = run(w.state, True, True, True, generator=w.generator)
+    # the chees chunks: _kernel_ess's warm chunk, then the timed one (two
+    # more warm chunks until the hierarchical phases took their share of the
+    # script's time: 11.9-19.5 s a chunk at 64 leapfrogs a step)
     w.config = dataclasses.replace(w.config, kernel="chees", chunk_size=CHEES_D24_CHUNK)
-    run = w._runner(with_history=False)
-    for _ in range(2):
-        w.state, _ = run(w.state, True, True, True, generator=w.generator)
     torch.cuda.synchronize()
     warm_secs = time.perf_counter() - t0
     # one timed history chunk (two until the pooling phase took its share of
@@ -1774,7 +1800,7 @@ def phase_blocked(counters):
 # schedule and the global polish (examples/reference_journey.py:123), the
 # unit-cube view's steps and identity tolerance.
 N_PRIOR_REGION = 1000
-N_PRIOR_JOURNEY = 30000
+N_PRIOR_JOURNEY = 20000   # 30000 until the hierarchical phases took their share
 N_PRIOR_CHUNK = 10000
 # 1 round (2 until the pooling phase took its share of the script's time:
 # 8.1 s, the best lp +0.003)
@@ -2014,7 +2040,7 @@ def phase_priors(ceilings, counters, ptxas, global_walker, global_lp_gen):
 # float32, on the plain batched posterior (neither kernel
 # reads a per-walker dataset); the anneal is 40000 steps (a 30000-step
 # anneal left 3 of 1024 spectra above 0.4 acceptance after the cold steps,
-# max 0.503, on an H100).
+# max 0.503, on an H100; with 6000 cold steps, 1 of 256 at 0.499).
 # Gates, fixed before the first chip run: each spectrum's best mu1, mu2
 # and field offset within NV_TOL_MHZ of its truth; each spectrum's
 # acceptance in 0.2-0.4 over 1000 steps (5 chunks at the cold finish's
@@ -2443,15 +2469,16 @@ CRITICISM_TAKE = 2000
 CRITICISM_GRID = 2048
 CRITICISM_PRIOR_DRAWS = 256
 CRITICISM_KFOLD = 10
-# kfold's anneal (then max(2000, half) mala steps): 2000, as reloo's, for
+# kfold's anneal (then max(2000, half) mala steps): 1000, as reloo's, for
 # the script's time limit (8000 took 38.1 s, with the kfold elpd 4.5 from
-# loo's within a band of 28.4; 4000: 3.9 from it, 17.0 s).
-CRITICISM_KFOLD_STEPS = 2000
+# loo's within a band of 28.4; 4000: 3.9 from it, 17.0 s; 2000, until the
+# hierarchical phases took their share: 4.0 from it, 21.6 s on a slow host).
+CRITICISM_KFOLD_STEPS = 1000
 CRITICISM_RELOO = 4
-# reloo's anneal (then max(2000, half) mala steps): a quarter of kfold's
+# reloo's anneal (then max(2000, half) mala steps): an eighth of kfold's
 # default 8000, to keep the script inside its time limit (8000 took 36.9
-# s, 4000 16.3 s)
-CRITICISM_RELOO_STEPS = 2000
+# s, 4000 16.3 s, 2000 23.0 s on a slow host)
+CRITICISM_RELOO_STEPS = 1000
 CRITICISM_DATASETS = 16
 CRITICISM_NESTED_LIVE = 512
 CRITICISM_TOL = {"loo_waic": 2.0, "kfold_se": 2.0, "x0": 0.01, "nested": 0.25}
@@ -3220,6 +3247,489 @@ def phase_pooling(ceilings, counters, ptxas):
                                        "bound_ms", "bound_by", "opmix_bound_ms")}}
 
 
+# The hier_refit phase: nv.HierarchicalNVFit over synthetic.nv_scan_grid(4,
+# 4) (16 pixels of 401 points; d = 4 + 16 x 6 = 100, so the block proposals
+# run), W = 4096, float32, started from the fit's own guesses
+# (guess_nv_params of each pixel's data), not from the truth: an anneal of
+# HIER_ANNEAL rwm steps at T = 10, then HIER_COLD chees steps at T = 1 (in
+# the CPU witness rwm alone, 20000 steps, and 4000 mala steps after it each
+# left pixels 0.5 MHz off and the fit ~170 nats under lp(truth); 200 chees
+# steps reached the mode), then every walker restarted at the best point
+# and HIER_SAMPLE more chees steps, the history the gates and the
+# cross-validation read (the first chees phase's history holds walkers
+# still climbing, and PSIS-LOO then flags 6355 of the 6416 points).  Gates,
+# fixed before the phase's first chip call from the CPU witness
+# (tests/hier_refit_witness.py: both packages at W = 512, float32; the port
+# / JAX landed at max |mu1 err| 0.381 / 0.273 MHz, max |field offset err|
+# 0.078 / 0.061 Oe, sigma's mean 10.289 / 10.078, kfold - reloo +27.0 /
+# -13.0 nats, every refit through its gate, logo -6.98e8 / -6.91e8) and
+# the truth (the guesses start 0-6.13 MHz off in mu1 and 0.71-1.71 Oe in
+# the field offset):
+# - each pixel's best mu1 within HIER_MU1_TOL MHz of its truth and its
+#   field offset within HIER_OFFSET_TOL Oe (about twice the witness's
+#   worst; a pixel that kept its guess fails both); the pooled sigma's
+#   population mean (the median over the sampled history) within
+#   HIER_SIGMA_TOL of 10 (every pixel's guessed linewidth is 10, so this
+#   reads only that the population stays with its pixels);
+# - the cross-validation of that fit, each verb's refits the joint
+#   hierarchical posterior as K groups of one walker (plain, no kernel):
+#   kfold(k=4), reloo of the points whose Pareto k is at or above the 4th
+#   highest (capped at 0.7, tests/test_hier_refit.py:82-116), logo(); every
+#   fold_ok / refit_ok true and no refit_failed, every elpd finite, and
+#   kfold's elpd within HIER_KFOLD_RELOO_NATS of reloo's (about twice the
+#   witness's larger gap; kfold's se is ~48).  logo's elpd is ~-7e8: a new
+#   pixel's resonances and amplitudes are not pooled, so they are drawn
+#   from their uniform boxes, and nearly every such spectrum misses the
+#   held-out one by many noise widths;
+# - no kernel launch anywhere in the phase (the hierarchical and grouped
+#   posteriors are plain by design, as in the JAX package).
+HIER_GRID = (4, 4)
+HIER_WALKERS = 4096
+HIER_ANNEAL = 6000
+HIER_COLD = 300
+HIER_COLD_KERNEL = "chees"
+HIER_SAMPLE = 200
+HIER_MU1_TOL = 0.75
+HIER_OFFSET_TOL = 0.2
+HIER_SIGMA_TOL = 0.5
+HIER_CV_STEPS = 2000
+HIER_CV_WALKERS = 64
+HIER_KFOLD = 4
+HIER_RELOO_RANK = 4
+HIER_RELOO_MAX = 8
+HIER_LOGO_Z = 16
+HIER_MAX_SAMPLES = 128
+HIER_LOO_SAMPLES = 512
+HIER_KFOLD_RELOO_NATS = 60.0
+HIER_F64_WALKERS = 64
+HIER_PROFILE_STEPS = 20
+HIER_WAIT_S = 900.0      # how long a cross-validation worker waits for the fit
+
+
+def hier_refit_fit(device, n_walkers=HIER_WALKERS):
+    """The hier_refit phase's fit on ``device``, float32: ``(fit, truths,
+    summary)``, the summary what the gates read.  The phase calls it on the
+    card; ``tests/hier_refit_witness.py`` on the CPU beside the JAX
+    package."""
+    import torch
+    from lisp_mcmc_torch import nv, synthetic
+
+    x, ys, truths = synthetic.nv_scan_grid(*HIER_GRID, seed=0)
+    fit = nv.HierarchicalNVFit([(x, y) for y in ys], n_walkers=n_walkers, seed=0,
+                               dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    fit.adaptive_steps(HIER_ANNEAL, auto=None)
+    anneal_acc = fit.acceptance()
+    fit.reset()
+    fit.sampling_steps(HIER_COLD, kernel=HIER_COLD_KERNEL)
+    fit.reset_to_most_likely()
+    fit.sampling_steps(HIER_SAMPLE, kernel=HIER_COLD_KERNEL)
+    _sync(device)
+    summary = {"W": n_walkers, "d": fit.spec.ndim, "pixels": fit.n_spectra,
+               "blocks": [fit.config.block_hyper, fit.config.block_local,
+                          fit.config.block_count],
+               "anneal": HIER_ANNEAL, "cold": [HIER_COLD_KERNEL, HIER_COLD, HIER_SAMPLE],
+               "fit_seconds": time.perf_counter() - t0,
+               "acceptance_anneal": anneal_acc, "acceptance_cold": fit.acceptance()}
+    summary.update(hier_fit_errors(fit, truths))
+    return fit, truths, summary
+
+
+def hier_fit_errors(fit, truths):
+    """Each pixel's best mu1 and field offset against the truth, and the
+    pooled sigma's population mean (the median over the history)."""
+    import numpy as np
+
+    best = fit.best_params_per_spectrum()
+    mu1 = np.asarray([b["mu1"] - t["mu1"] for b, t in zip(best, truths)])
+    offset = np.asarray([o - (t["mu2"] - t["mu1"]) / 2 / 2.8
+                         for o, t in zip(fit.field_offsets(), truths)])
+    sigma_mu = float(fit.hyper_params("median")["mu"]["sigma"])
+    return {"mu1_err": mu1.tolist(), "offset_err": offset.tolist(),
+            "max_mu1_err": float(np.abs(mu1).max()),
+            "max_offset_err": float(np.abs(offset).max()),
+            "sigma_mu": sigma_mu, "sigma_mu_err": abs(sigma_mu - 10.0)}
+
+
+def hier_cv_verb(fit, verb, flagged=None, on_refit=None):
+    """One cross-validation verb of the phase on ``fit`` (``"kfold"``,
+    ``"loo"``, ``"reloo"`` of the points above the returned ``loo``'s
+    threshold, given as ``flagged = (loo result, threshold)``, or
+    ``"logo"``): ``(result, summary)``, timed with a synchronize around it;
+    ``on_refit(refit_walker)`` is called after its refit's run."""
+    import numpy as np
+    from lisp_mcmc_torch import diagnostics
+
+    cv = dict(n_steps=HIER_CV_STEPS, walkers_per_dataset=HIER_CV_WALKERS,
+              max_samples=HIER_MAX_SAMPLES, seed=0)
+    real_run = diagnostics._run_refit
+
+    def run_refit(rfit, n_steps, temperature, burn_fraction):
+        real_run(rfit, n_steps, temperature, burn_fraction)
+        if on_refit is not None:
+            on_refit(rfit)
+
+    diagnostics._run_refit = run_refit
+    try:
+        _sync(fit.device)
+        t0 = time.perf_counter()
+        if verb == "kfold":
+            r = diagnostics.kfold(fit, k=HIER_KFOLD, **cv)
+        elif verb == "loo":
+            r = diagnostics.loo(fit, max_samples=HIER_LOO_SAMPLES)
+        elif verb == "reloo":
+            r = diagnostics.reloo(fit, flagged[0], k_threshold=flagged[1],
+                                  max_refits=HIER_RELOO_MAX, **cv)
+        else:
+            r = fit.logo(n_z=HIER_LOGO_Z, **cv)
+        _sync(fit.device)
+        secs = time.perf_counter() - t0
+    finally:
+        diagnostics._run_refit = real_run
+    if verb == "kfold":
+        out = {"elpd": r.elpd, "se": r.se, "fold_ok": r.fold_ok.tolist(),
+               "n_points": r.n_points, "folds": r.folds.tolist(),
+               "finite": _finite(r.pointwise)}
+    elif verb == "loo":
+        k = np.sort(r.pareto_k)
+        thr = min(0.7, float(k[-HIER_RELOO_RANK]) - 1e-6)
+        out = {"elpd": r.elpd, "se": r.se, "max_k": float(k[-1]), "threshold": thr,
+               "flagged": np.flatnonzero(r.pareto_k > thr).tolist()}
+    elif verb == "reloo":
+        out = {"elpd": r.elpd, "refit_failed": list(r.refit_failed),
+               "max_k": float(r.pareto_k.max()), "finite": _finite(r.pointwise)}
+    else:
+        out = {"elpd": r.elpd, "se": r.se, "elpd_per_dataset": r.elpd_per_dataset.tolist(),
+               "refit_ok": r.refit_ok.tolist(),
+               "finite": _finite(r.elpd_per_dataset, [r.elpd, r.se])}
+    return r, {**out, "seconds": secs}
+
+
+def _launches():
+    """This process's launches of the three kernels so far."""
+    from lisp_mcmc_torch.ops.chunk_kernel import chunk_rwm
+    from lisp_mcmc_torch.ops.loglik_kernel import fused_posterior
+    from lisp_mcmc_torch.ops.microbench import chain_probe
+
+    return {c.__name__: c.launches for c in (fused_posterior, chunk_rwm, chain_probe)}
+
+
+def hier_reloo(fit, profile=None):
+    """loo, then reloo of the points at or above the HIER_RELOO_RANK-th
+    highest Pareto k, on ``fit``: their summaries, and with ``profile``
+    (a callable of the refit walker, after its run) its result too."""
+    kept = []
+    lo, loo = hier_cv_verb(fit, "loo")
+    _, reloo = hier_cv_verb(fit, "reloo", (lo, loo["threshold"]), kept.append)
+    return {"loo": loo, "reloo": reloo,
+            **({"refit": profile(kept[0], loo["flagged"])} if profile else {})}
+
+
+def hier_refit_cv(fit):
+    """kfold, loo, reloo and logo on ``fit`` in turn at the phase's
+    settings (the CPU witness; on the card each runs in a process of its
+    own, :func:`hier_worker`)."""
+    out = {"kfold": hier_cv_verb(fit, "kfold")[1], **hier_reloo(fit),
+           "logo": hier_cv_verb(fit, "logo")[1]}
+    return _cv_totals(out)
+
+
+def _cv_totals(out):
+    out["seconds"] = {v: out[v]["seconds"] for v in ("kfold", "loo", "reloo", "logo")}
+    out["kfold_minus_reloo"] = out["kfold"]["elpd"] - out["reloo"]["elpd"]
+    return out
+
+
+def _refit_profile(r, flagged):
+    """A profiled 20-step mala chunk of the grouped refit walker ``r`` (ms a
+    step, torch kernels a step, the device's busy share, in this process),
+    and its posterior in float32 against float64 at its walkers (the same
+    leave-out blocks, rebuilt in float64 from the phase's data)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from lisp_mcmc_torch import nv, synthetic
+
+    prev = r.config
+    r.config = dataclasses.replace(prev, kernel="mala", chunk_size=HIER_PROFILE_STEPS)
+    try:
+        run = r._runner(with_history=False)
+    finally:
+        r.config = prev
+    p = _profile_chunks("hier_refit_grouped_mala_chunk", run, r.state, r.generator,
+                        args=(True, False, True), steps=HIER_PROFILE_STEPS)
+    x, ys, _ = synthetic.nv_scan_grid(*HIER_GRID, seed=0)
+    f64 = nv.HierarchicalNVFit([(x, y) for y in ys], n_walkers=HIER_F64_WALKERS, seed=0,
+                               dtype=torch.float64, device=r.device)
+    n = f64._n_real_points
+    g64 = f64._grouped_joint_walker(
+        f64._holdout_data("reloo", [np.arange(n) != i for i in flagged]), len(flagged),
+        r.n_walkers // len(flagged), 0, r.state.position.double().cpu())
+    lp32 = r._log_post(r.state.position).double()
+    lp64 = g64._log_post(r.state.position.double())
+    return {"grouped_step": {"W": r.n_walkers, "groups": r.n_groups,
+                             "ms_per_step": p["chunk_wall_ms"] / HIER_PROFILE_STEPS,
+                             "kernels_per_step": p["kernels_per_chunk"] / HIER_PROFILE_STEPS,
+                             "device_busy_share": p["device_busy_share"]},
+            "float32_vs_float64": {
+                "walkers": int(r.n_walkers),
+                "max_rel_err": float(((lp32 - lp64).abs() / lp64.abs().clamp_min(1.0)).max())}}
+
+
+HIER_JOBS = ("fit", "kfold", "reloo", "logo", "calibrated", "cauchy")
+
+
+def hier_worker(path, job):
+    """One job of the hierarchical phases in a process of its own, its
+    summary (and the process's launches) printed as the last line of
+    stdout: ``"fit"`` fits the phase's HierarchicalNVFit and hands it on
+    through ``checkpoint.hierarchical_save`` to ``path`` (then
+    ``path + ".done"``); ``"kfold"``, ``"reloo"`` (with loo and the refit's
+    profile) and ``"logo"`` wait for that file and load the fit from it;
+    ``"calibrated"`` and ``"cauchy"`` are the SBC study and its control.
+    chip_smoke starts them all before ``batched_nv``: host-paced, they
+    overlap it and each other."""
+    import torch
+    from lisp_mcmc_torch import checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if job in ("calibrated", "cauchy"):
+        out = hier_sbc_summary(DEVICE, job)
+    elif job == "fit":
+        fit, _, out = hier_refit_fit(DEVICE, HIER_WALKERS)
+        checkpoint.hierarchical_save(fit, path)
+        open(path + ".done", "w").close()
+    else:
+        t0 = time.perf_counter()
+        while not os.path.exists(path + ".done"):
+            check(time.perf_counter() - t0 < HIER_WAIT_S,
+                  f"{job}: the fit never reached {path}")
+            time.sleep(0.5)
+        fit = checkpoint.hierarchical_load(path, device=DEVICE)
+        out = (hier_reloo(fit, _refit_profile) if job == "reloo"
+               else hier_cv_verb(fit, job)[1])
+    print(json.dumps({**out, "launches": _launches()}), flush=True)
+
+
+def start_hier_workers(path):
+    """Every job of :func:`hier_worker`, each started in a process of its
+    own; the hier phases collect them."""
+    return {job: _spawn(f"hier_worker({path!r}, {job!r})", f"hier_{job}")
+            for job in HIER_JOBS}
+
+
+def _spawn(call, name):
+    """``chip_smoke.<call>`` in a new Python process on DEVICE, its stderr
+    kept in chiprun_out/worker_<name>.log."""
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    err = open(os.path.join(ROOT, "chiprun_out", f"worker_{name}.log"), "w")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+            f"cs.DEVICE = {DEVICE!r}; cs.{call}")
+    try:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+    finally:
+        err.close()
+
+
+def _collect(proc, name):
+    """A worker's summary (the last line of its stdout); its failure fails."""
+    out, _ = proc.communicate()
+    check(proc.returncode == 0 and out.strip(),
+          f"worker {name} exited with {proc.returncode} (chiprun_out/worker_{name}.log)")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_hier_refit(counters, procs, path):
+    """The hierarchical NV fit and its refit cross-validation (see the
+    constants above), from the worker processes ``procs`` of
+    :func:`start_hier_workers` (the fit handed from one to the others by
+    ``checkpoint.hierarchical_save`` at ``path``): each verb's seconds, the
+    launches (none), the profiled grouped mala chunk of reloo's refit and
+    its posterior in float32 against float64.  Returns the fit, loaded
+    here, for the checkpoint step."""
+    from lisp_mcmc_torch import checkpoint
+
+    t_phase = time.perf_counter()
+    res = {job: _collect(procs.pop(job), f"hier_{job}")
+           for job in ("fit", "kfold", "reloo", "logo")}
+    launches = {c.__name__: 0 for c in counters}
+    for r in res.values():
+        for k, v in r.pop("launches").items():
+            launches[k] += v
+    rl = res.pop("reloo")
+    cv = _cv_totals({"kfold": res["kfold"], "loo": rl["loo"], "reloo": rl["reloo"],
+                     "logo": res["logo"]})
+    fit = checkpoint.hierarchical_load(path, device=DEVICE)
+    for f in (path, path + ".done"):
+        os.remove(f)
+    out = {"phase": "hier_refit", **res["fit"], **cv, **rl["refit"], "launches": launches,
+           "seconds_waited": time.perf_counter() - t_phase}
+    emit(out)
+
+    bad = [i for i, e in enumerate(out["mu1_err"]) if abs(e) > HIER_MU1_TOL]
+    check(not bad, f"hier_refit: mu1 off by more than {HIER_MU1_TOL} MHz at pixels {bad} "
+          f"({out['max_mu1_err']})")
+    bad = [i for i, e in enumerate(out["offset_err"]) if abs(e) > HIER_OFFSET_TOL]
+    check(not bad, f"hier_refit: field offset off by more than {HIER_OFFSET_TOL} Oe at "
+          f"pixels {bad} ({out['max_offset_err']})")
+    check(out["sigma_mu_err"] <= HIER_SIGMA_TOL,
+          f"hier_refit: the pooled sigma's mean {out['sigma_mu']} not within "
+          f"{HIER_SIGMA_TOL} of 10")
+    kf, rl, lg = cv["kfold"], cv["reloo"], cv["logo"]
+    check(all(kf["fold_ok"]) and not rl["refit_failed"] and all(lg["refit_ok"]),
+          f"hier_refit: a refit failed its collapse gate (kfold {kf['fold_ok']}, "
+          f"reloo {rl['refit_failed']}, logo {lg['refit_ok']})")
+    flagged = cv["loo"]["flagged"]
+    check(1 <= len(flagged) <= HIER_RELOO_MAX,
+          f"hier_refit: reloo flagged {len(flagged)} points")
+    check(kf["finite"] and rl["finite"] and lg["finite"], "hier_refit: a non-finite elpd")
+    check(abs(out["kfold_minus_reloo"]) <= HIER_KFOLD_RELOO_NATS,
+          f"hier_refit: kfold elpd {kf['elpd']} not within {HIER_KFOLD_RELOO_NATS} of "
+          f"reloo's {rl['elpd']}")
+    check(all(v == 0 for v in launches.values()),
+          f"hier_refit: a kernel launched on the plain hierarchical path ({launches})")
+    return fit
+
+
+# The hier_sbc phase: sbc_check_hierarchical at the settings of JAX
+# tests/test_sbc_hierarchical.py:27-59 (a pooled constant over 4 datasets of
+# 8 points, sigma 0.5, mu ~ N(0, 1), tau ~ LogNormal(log 0.5, 0.4); 40
+# simulations of 24 walkers, 3000 anneal + 3000 mala steps, seed 0), float32
+# on the card.  Gates, that file's: the study ok() (every walk coordinate's
+# ranks uniform at alpha 0.01, Bonferroni) with ranks spanning < 10 to > 53;
+# the Cauchy-noise control not ok() with p(c__tau) < 1e-6.  Then the
+# checkpoint step: a flagship walker (W = 131072) saved on the card after
+# CHECKPOINT_STEPS, loaded, run on (CHECKPOINT_RESUME steps on kernel 1 and
+# one chunk on the chunk kernel) beside the walker it came from: every state
+# array bit for bit equal; and hier_refit's fit through hierarchical_save /
+# hierarchical_load: its log posterior at the live ensemble bit for bit.
+HIER_SBC = dict(n_sims=40, walkers_per_sim=24, n_steps=3000, sampling_steps=3000,
+                sampling_kernel="mala", seed=0)
+HIER_SBC_CONTROL_P = 1e-6
+CHECKPOINT_STEPS = 400
+CHECKPOINT_RESUME = 200
+
+
+def hier_sbc_study(device, simulate=None, dtype=None):
+    """One sbc_check_hierarchical study of the phase on ``device``."""
+    import numpy as np
+    import lisp_mcmc_torch as mfit
+
+    def const_model(x, p):
+        return p["c"] + 0.0 * x
+
+    hyper = {"c": (mfit.Gaussian(0.0, 1.0), mfit.LogNormal(float(np.log(0.5)), 0.4))}
+    return mfit.sbc_check_hierarchical(const_model, np.linspace(0.0, 1.0, 8), {"c": 0.0}, 4,
+                                       data_error=0.5, hyper=hyper, simulate=simulate,
+                                       device=device, dtype=dtype, **HIER_SBC)
+
+
+def cauchy_sim(rng, mu):
+    """The negative control's noise: Cauchy, where the fit declares Gaussian."""
+    return mu + 0.5 * rng.standard_t(1, size=mu.shape)
+
+
+def hier_sbc_summary(device, name):
+    """The ``"calibrated"`` study or the ``"cauchy"`` control on ``device``:
+    what the gates read, and its seconds (a synchronize around it)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    r = hier_sbc_study(device, simulate=cauchy_sim if name == "cauchy" else None)
+    _sync(device)
+    return {"ok": r.ok(), "p_values": r.p_values, "sim_ok": int(r.sim_ok.sum()),
+            "rank_min": int(r.ranks.min()), "rank_max": int(r.ranks.max()),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_hier_sbc(counters, hier_fit, procs):
+    """Hierarchical SBC and its negative control (their worker processes in
+    ``procs``, from :func:`start_hier_workers`), then the checkpoint step
+    (see the constants above)."""
+    import dataclasses
+    import torch
+    from lisp_mcmc_torch import checkpoint
+
+    t_phase = time.perf_counter()
+    out = {"phase": "hier_sbc", **HIER_SBC,
+           "launches": {c.__name__: 0 for c in counters}}
+    for name in ("calibrated", "cauchy"):
+        out[name] = _collect(procs.pop(name), f"hier_{name}")
+        for k, v in out[name].pop("launches").items():
+            out["launches"][k] += v
+    out["seconds_waited"] = time.perf_counter() - t_phase
+    emit(out)
+    cal, cau = out["calibrated"], out["cauchy"]
+    check(cal["ok"] and cal["rank_min"] < 10 and cal["rank_max"] > 53,
+          f"hier_sbc: the calibrated study failed ({cal})")
+    check(not cau["ok"] and cau["p_values"]["c__tau"] < HIER_SBC_CONTROL_P,
+          f"hier_sbc: the Cauchy control passed ({cau})")
+    check(all(v == 0 for v in out["launches"].values()),
+          f"hier_sbc: a kernel launched on the plain grouped path ({out['launches']})")
+
+    # the checkpoint step
+    t0 = time.perf_counter()
+    ck = {"phase": "checkpoint", "W": W_FLAGSHIP, "steps": CHECKPOINT_STEPS,
+          "resume": CHECKPOINT_RESUME}
+
+    def run_on(w):
+        for c in counters:
+            c.launches = 0
+        w.adaptive_steps(CHECKPOINT_RESUME, auto=None)
+        w.config = dataclasses.replace(w.config, posterior_impl="chunk_kernel")
+        w.adaptive_steps(w.config.chunk_size, auto=None, collect_history=False)
+        w.config = dataclasses.replace(w.config, posterior_impl="auto")
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "checkpoint_flagship.npz")
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
+    w.adaptive_steps(CHECKPOINT_STEPS, auto=None)
+    checkpoint.walker_save(w, path)
+    ck["launches_uninterrupted"] = run_on(w)
+    r = checkpoint.walker_load(path, device=DEVICE)
+    ck["launches_resumed"] = run_on(r)
+    ck["bit_identical"] = {k: bool(torch.equal(getattr(r.state, k), getattr(w.state, k)))
+                           for k in ("position", "logprob", "best_position", "best_logprob",
+                                     "l_matrix", "m_sum", "m_outer", "m_count")}
+    ck["file_mb"] = os.path.getsize(path) / 2**20
+    os.remove(path)
+    hpath = os.path.join(ROOT, "chiprun_out", "checkpoint_hier.npz")
+    checkpoint.hierarchical_save(hier_fit, hpath)
+    h = checkpoint.hierarchical_load(hpath, device=DEVICE)
+    os.remove(hpath)
+    at = hier_fit.state.position
+    ck["hierarchical_equal"] = bool(torch.equal(h._log_post(at), hier_fit._log_post(at))
+                                    and torch.equal(h.state.position, at))
+    ck["seconds"] = time.perf_counter() - t0
+    ck["seconds_phase"] = time.perf_counter() - t_phase
+    emit(ck)
+    check(all(ck["bit_identical"].values()),
+          f"checkpoint: the resumed walker differs from the uninterrupted one "
+          f"({ck['bit_identical']})")
+    for run in ("launches_uninterrupted", "launches_resumed"):
+        check(ck[run]["fused_posterior"] >= CHECKPOINT_RESUME and ck[run]["chunk_rwm"] == 1,
+              f"checkpoint: {run} launched {ck[run]}, want kernel 1 a step and one chunk")
+    check(ck["hierarchical_equal"],
+          "checkpoint: the reloaded hierarchical fit's log posterior differs")
+    return out
+
+
 def _slice_noise(W, steps, cfg, generator):
     """One slice chunk's draws in the runner's ``noise=`` layout (ungrouped:
     G = 1, Bh = W/2), the shrink uniforms for the whole budget."""
@@ -3383,12 +3893,22 @@ def main():
     prior_rows, prior_walker = phase_priors(ceilings, counters, ptxas, global_walker,
                                             global_lp_gen)
     del global_walker
-    phase_batched_nv(counters)
-    evidence_rows = phase_evidence(ceilings, counters, ptxas)
-    phase_criticism(counters, journey_walker, prior_walker)
-    del journey_walker, prior_walker
-    vi_row = phase_variational(ceilings, counters, ptxas)
-    pool_row = phase_pooling(ceilings, counters, ptxas)
+    # the hierarchical phases' jobs, in processes of their own from here on
+    hier_path = os.path.join(ROOT, "chiprun_out", "hier_refit_fit.npz")
+    os.makedirs(os.path.dirname(hier_path), exist_ok=True)
+    hier_procs = start_hier_workers(hier_path)
+    try:
+        phase_batched_nv(counters)
+        evidence_rows = phase_evidence(ceilings, counters, ptxas)
+        phase_criticism(counters, journey_walker, prior_walker)
+        del journey_walker, prior_walker
+        vi_row = phase_variational(ceilings, counters, ptxas)
+        pool_row = phase_pooling(ceilings, counters, ptxas)
+        hier_fit = phase_hier_refit(counters, hier_procs, hier_path)
+        phase_hier_sbc(counters, hier_fit, hier_procs)
+        del hier_fit
+    finally:
+        _stop(hier_procs.values())
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)

@@ -11,9 +11,11 @@ walker sets (``BatchedFit``, ``BatchedNVFit``), partial pooling
 (``log_evidence``, ``smc_sample``, ``laplace_approx``, ``nested_sample``)
 and model criticism (predictive checks, WAIC, PSIS-LOO, LOO-PIT, the
 audit, prior sensitivity, refit cross-validation, model weights, the
-profile likelihood), simulation-based calibration (``sbc_check``) and
-variational inference (``advi``, RealNVP ``flow_advi``, NeuTra, flow
-checkpoints) are ported too.
+profile likelihood), simulation-based calibration (``sbc_check``,
+``sbc_check_hierarchical``), variational inference (``advi``, RealNVP
+``flow_advi``, NeuTra, flow checkpoints) and checkpoints of every fit
+kind (``walker_save``/``walker_load`` and the batched, hierarchical and
+walker-set forms, in the JAX package's file format) are ported too.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -28,6 +30,8 @@ entry points run on the GPU unless ``device="cpu"`` is passed.
 
 from . import control, diagnostics, models, nv, stats, utils
 from .batched import BatchedFit
+from .checkpoint import (batched_load, batched_save, hierarchical_load, hierarchical_save,
+                         walker_load, walker_save, walker_set_load, walker_set_save)
 from .control import clear_stop, estop, request_stop, stop_requested
 from .data import Dataset, clean_data, clean_data_error, create_walker_data
 from .device import resolve_device
@@ -47,8 +51,8 @@ from .expressions import (eval_expression, expression_credible_interval,
 from .fit import Walker, make_adam_sgdr_runner, mcmc_fit, unit_cube_view, walker_create
 from .io import file_specs, get_filename, read_file_data
 from .kernel import FitConfig, WalkerState, init_state, temperature_schedule
-from .hierarchical import HierarchicalFit
-from .nv import BatchedNVFit, fit_nv_spectra_batched
+from .hierarchical import HierarchicalFit, LOGOResult
+from .nv import BatchedNVFit, HierarchicalNVFit, fit_nv_spectra_batched
 from .likelihoods import (create_log_likelihood_function, log_factorial,
                           log_likelihood_normal, log_likelihood_normal_cutoff,
                           log_likelihood_normal_weighted, log_likelihood_poisson, log_normal,
@@ -64,7 +68,7 @@ from .priors import (Gaussian, LogNormal, MVGaussian, PriorSpec, Uniform, as_pri
 from .predictive import (Prediction, PredictiveDraws, posterior_predictive, ppc_pvalue,
                          predict, prior_predictive)
 from .profile import ProfileResult, profile_likelihood
-from .sbc import SBCResult, sbc_check
+from .sbc import SBCResult, sbc_check, sbc_check_hierarchical
 from .smc import SMCResult, seed_prior_box, smc_sample
 from .variational import (FlowVIResult, NeutraResult, VIResult, advi, advi_per_dataset,
                           flow_advi, flow_advi_per_dataset, load_flow)
@@ -94,6 +98,7 @@ __all__ = [
     "MVGaussian", "PriorSpec", "as_prior_spec", "resolve_prior_spec",
     "unit_cube_wall", "WalkerSet",
     "BatchedFit", "BatchedNVFit", "fit_nv_spectra_batched", "HierarchicalFit",
+    "HierarchicalNVFit", "LOGOResult",
     "PoolingComparison", "compare_pooling",
     "EvidenceResult", "LaplaceResult", "laplace_approx", "log_bayes_factor",
     "log_evidence", "SMCResult", "seed_prior_box", "smc_sample",
@@ -103,6 +108,8 @@ __all__ = [
     "model_weights", "evidence_weights", "NestedResult", "nested_sample",
     "nested_per_dataset", "PredictiveDraws", "Prediction", "posterior_predictive",
     "prior_predictive", "predict", "ppc_pvalue", "ProfileResult", "profile_likelihood",
-    "SBCResult", "sbc_check", "VIResult", "FlowVIResult", "NeutraResult", "advi",
-    "flow_advi", "advi_per_dataset", "flow_advi_per_dataset", "load_flow",
+    "SBCResult", "sbc_check", "sbc_check_hierarchical", "VIResult", "FlowVIResult",
+    "NeutraResult", "advi", "flow_advi", "advi_per_dataset", "flow_advi_per_dataset",
+    "load_flow", "walker_save", "walker_load", "walker_set_save", "walker_set_load",
+    "batched_save", "batched_load", "hierarchical_save", "hierarchical_load",
 ]

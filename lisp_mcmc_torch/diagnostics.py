@@ -299,15 +299,15 @@ def grouped_refit_health(fit, name: str, min_tail_ess: float = REFIT_GATE_MIN_ES
     array, block j True when its retained history has tail ESS >=
     ``min_tail_ess`` on every coordinate and a walker-row move fraction >=
     ``min_move_frac``; warns on failures.  A block with at most one
-    retained row sampled nothing and fails."""
-    d = fit.spec.ndim
+    retained row sampled nothing and fails.  The tail ESS of every
+    coordinate comes from one call over the coordinate axis."""
     ok_list, why = [], []
     for j, pos in enumerate(_history_blocks(fit, None)):
         if pos.shape[0] <= 1:
             ok_list.append(False)
             why.append(f"block {j}: <= 1 retained history row")
             continue
-        worst = min(float(tail_ess(pos[:, :, i])) for i in range(d))
+        worst = float(tail_ess(pos).min())
         moved = float(torch.any(torch.diff(pos, dim=0) != 0.0, dim=-1)
                       .to(torch.float64).mean())
         block_ok = worst >= min_tail_ess and moved >= min_move_frac
@@ -1032,16 +1032,6 @@ def _batched_refit(walker, name: str, holdouts, n_steps: int, temperature: float
                                  walkers_per_dataset, burn_fraction, max_samples, seed)
 
 
-def _refuse_pending_refit(walker, name: str) -> None:
-    """A fit whose own refit cross-validation is not ported yet carries the
-    reason as ``_refit_pending``; :func:`reloo` and :func:`kfold` raise it
-    before any refit (never through :func:`_global_batched_refit`, which
-    would refit another model)."""
-    pending = getattr(walker, "_refit_pending", None)
-    if pending:
-        raise ValueError(f"{name}: {pending}")
-
-
 def _refit_n_points(walker) -> int:
     """Length of the real-point axis the holdouts index (``_n_real_points``
     where a structured ensemble declares it)."""
@@ -1061,7 +1051,6 @@ def reloo(walker, result: LOOResult | None = None, k_threshold: float = 0.7,
     p(y_i | theta_s^(-i))`` with k = 0; a block that fails the collapse
     gate keeps its PSIS value and flag (``refit_failed``).  More than
     ``max_refits`` flags means a misspecified model, and raises."""
-    _refuse_pending_refit(walker, "reloo")
     if result is None:
         result = loo(walker, max_samples=max_samples)
     flagged = np.where(result.pareto_k > k_threshold)[0]
@@ -1121,7 +1110,6 @@ def kfold(walker, k: int = 10, folds=None, n_steps: int = 8000, temperature: flo
     against the posterior that never saw it, ``elpd_i = log mean_s p(y_i |
     theta_s^(-fold(i)))``.  ``folds``: explicit fold ids (length n, 0..k-1)
     in place of the seeded round-robin over a permutation."""
-    _refuse_pending_refit(walker, "kfold")
     n = _refit_n_points(walker)
     if folds is not None:
         folds = np.asarray(folds, np.int64)

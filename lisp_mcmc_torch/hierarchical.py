@@ -1,10 +1,9 @@
 """Hierarchical (partial-pooling) fits: S datasets, one shared population.
 
-Port of ``lisp_mcmc_tpu/hierarchical.py`` (all of it but the refit
-family: ``logo``, ``_refit_cv`` and the grouped joint walker, which
-``diagnostics.kfold``/``reloo`` would run; both refuse a
-:class:`HierarchicalFit` by name until that family is ported).  The
-reference fits each spectrum of a scan grid on its own (``dir->nv-walkers``,
+Port of ``lisp_mcmc_tpu/hierarchical.py``, its refit cross-validation
+included: ``diagnostics.kfold``/``reloo`` reach :meth:`HierarchicalFit.
+_refit_cv` (joint leave-out refits), and :meth:`HierarchicalFit.logo`
+leaves a whole dataset out.  The reference fits each spectrum of a scan grid on its own (``dir->nv-walkers``,
 nv-specific.lisp:58-66) or shares parameters globally (test.lisp:58-70);
 between those sits the model here,
 
@@ -49,25 +48,36 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from .batched import _posterior_stack
+from .batched import _DATASET_FIELDS, _posterior_stack
 from .data import Dataset
 from .fit import Walker, _host, _nonzero_scales, _Term, default_dtype
 from .likelihoods import log_likelihood_normal, resolve_likelihood
 from .params import ParamSpec
 from .priors import Gaussian, LogNormal, PriorSpec, Uniform, _col, log_prior_flat
 
-__all__ = ["HierarchicalFit"]
+__all__ = ["HierarchicalFit", "LOGOResult"]
 
 
-# Refit cross-validation of the joint posterior (JAX hierarchical.py:1050-
-# 1334: the grouped joint walker, _refit_cv, logo) is not ported yet; until
-# it is, diagnostics.kfold and reloo refuse a HierarchicalFit with this
-# reason instead of refitting a one-term model of dataset 0.
-_REFIT_PENDING = (
-    "refit cross-validation of a HierarchicalFit (the joint leave-out refits "
-    "behind kfold, reloo and logo: ROADMAP Queue 1 step 3b, the refit-CV "
-    "family) is not ported yet; score the fit with waic/loo/loo_pit on its "
-    "joint pointwise axis, or per dataset")
+@dataclasses.dataclass(frozen=True)
+class LOGOResult:
+    """Leave-one-group-out CV (:meth:`HierarchicalFit.logo`; JAX
+    hierarchical.py:71-95): ``elpd`` the sum over datasets of ``log p(y_s |
+    y_-s)``, the expected log predictive density of a new group;
+    ``elpd_per_dataset`` the per-group terms (a very negative one flags a
+    dataset the population does not describe, ``-inf`` one whose every
+    draw underflowed); ``se`` the standard error over the finite terms
+    (``sqrt(n var)``, ddof 1); ``refit_ok`` each group's collapse gate
+    (``diagnostics.grouped_refit_health``): a False entry's elpd is
+    unreliable."""
+
+    elpd: float
+    se: float
+    elpd_per_dataset: np.ndarray
+    refit_ok: np.ndarray | None = None
+
+    def __repr__(self):
+        return (f"LOGOResult(elpd={self.elpd:.2f}, se={self.se:.2f}, "
+                f"S={len(self.elpd_per_dataset)})")
 
 
 def _as_dist(v, what):
@@ -99,6 +109,9 @@ def _term_branch_model(fns, one_col: bool):
 
     model.__name__ = "hier_multiterm[" + ",".join(
         getattr(f, "__name__", "f") for f in fns) + "]"
+    # checkpoint.hierarchical_save records the terms by name
+    model._term_fns = tuple(fns)
+    model._term_one_col = one_col
     return model
 
 
@@ -220,9 +233,25 @@ class _HierarchicalView:
         return self._fit.params_per_dataset("best")[self._s]
 
 
+class _SeededLWalker(Walker):
+    """A walker whose initial proposal L is given (JAX hierarchical.py:
+    262-278): a refit or SBC ensemble in walk space starts from the parent
+    fit's adapted factor, where the diagonal of magnitudes would give the
+    z coordinates (near 0) meaningless scales."""
+
+    def __init__(self, *args, l_seed=None, **kwargs):
+        self._l_seed_matrix = l_seed
+        super().__init__(*args, **kwargs)
+
+    def _initial_l_matrix(self, vec):
+        if self._l_seed_matrix is None:
+            return super()._initial_l_matrix(vec)
+        return torch.as_tensor(self._l_seed_matrix, dtype=self.dtype, device=self.device)
+
+
 class HierarchicalFit(Walker):
     """Partial pooling across S datasets as one walker ensemble (JAX
-    ``HierarchicalFit``, hierarchical.py:281-1049).
+    ``HierarchicalFit``, hierarchical.py:281-1343).
 
     ``function``: one model ``f(x, params)`` for every dataset, or a list
     of T term functions with each dataset a list of T ``(x, y)`` pairs
@@ -248,10 +277,9 @@ class HierarchicalFit(Walker):
     ``{p_i}__c_{p_j}``, ``{p}__z{s}`` for pooled ``p``, ``{p}__{s}`` for a
     non-pooled one.  Natural space: :meth:`params_per_dataset`,
     :meth:`hyper_params`, :meth:`population_covariance`,
-    :meth:`dataset_view`.
+    :meth:`dataset_view`.  Refit cross-validation: ``diagnostics.kfold``
+    and ``reloo`` (through :meth:`_refit_cv`) and :meth:`logo`.
     """
-
-    _refit_pending = _REFIT_PENDING
 
     def __init__(self, function: Callable, datasets: Sequence, params, data_error=None, *,
                  pooled: Sequence[str] | None = None, hyper: Mapping | None = None,
@@ -433,6 +461,7 @@ class HierarchicalFit(Walker):
             likelihood = log_likelihood_normal
         self._likelihood = likelihood
         gaussian = likelihood is log_likelihood_normal
+        self._gaussian = gaussian
         batch_data = _posterior_stack(dsets, gaussian)
 
         columns = self._local_columns
@@ -830,3 +859,211 @@ class HierarchicalFit(Walker):
             sigma = np.broadcast_to(np.asarray(noise, np.float64), mu_curves.shape[1:])
             y_rep = mu_curves + sigma * rng.standard_normal(mu_curves.shape)
         return Prediction(x=np.asarray(x), mu=mu_curves, y_rep=y_rep)
+
+    # ------------------------------------------------------------ refit-CV
+
+    def _joint_blocks(self, blocks) -> dict:
+        """K blocks of S datasets -> ``{"ds": {field: (K, S, N)}}``, the
+        stacked data of :meth:`_grouped_joint_walker`."""
+        return {"ds": {k: torch.stack([_posterior_stack(b, False)["ds"][k] for b in blocks])
+                       for k in _DATASET_FIELDS}}
+
+    def _grouped_joint_walker(self, refit_data, K: int, B: int, seed: int, pos0,
+                              config=None) -> _SeededLWalker:
+        """K copies of this fit's joint posterior, each over its own ``(S,
+        N)`` datasets, as the adaptation groups of one walker (JAX
+        hierarchical.py:1050-1123).
+
+        ``refit_data = {"ds": {field: (K, S, N)}}`` (:meth:`_joint_blocks`);
+        block g's posterior is the whole non-centered model (hyperpriors,
+        z priors, every dataset's likelihood) against block g's datasets.
+        The batched posterior evaluates the ``(K, B, d)`` blocks against the
+        stacks in one call: the Gaussian z-sum broadcasts the blocks' data
+        over their walkers, any other likelihood is ``torch.func.vmap``-ed
+        over the blocks.  ``pos0``: (K*B, d) walk-space starts.  A blocked
+        parent keeps its block layout; ``history_walkers`` is zeroed so
+        every block stays in the history.  The fit is custom with per-walker
+        aux (the block index), so it runs the plain posterior: neither
+        kernel reads a dataset per block."""
+        from .batched import _pick
+        from .kernel import FitConfig
+
+        if config is None and self.config.block_count > 0:
+            config = dataclasses.replace(
+                FitConfig(), block_hyper=self.config.block_hyper,
+                block_local=self.config.block_local, block_count=self.config.block_count)
+        post, d = self._custom_log_post, self.spec.ndim
+        ds = refit_data["ds"]
+        if self._gaussian:
+            data = {"x": ds["x"], "y": ds["y"], "inv_sigma": ds["inv_sigma"],
+                    "const": ds["log_norm_const"]}
+            def batched_log_post(positions, data):
+                # each block's data broadcast over its B walkers: (K, 1, S, N)
+                spread = {k: v[:, None] for k, v in data.items()}
+                return post(positions.reshape(K, B, d), spread).reshape(positions.shape[0])
+
+            def one_block(block_idx, data):
+                return {k: _pick(v, block_idx) for k, v in data.items()}
+        else:
+            data = refit_data
+            over_blocks = torch.func.vmap(lambda th, fields: post(th, {"ds": fields}))
+
+            def batched_log_post(positions, data):
+                return over_blocks(positions.reshape(K, B, d), data["ds"]).reshape(
+                    positions.shape[0])
+
+            def one_block(block_idx, data):
+                return {"ds": {k: _pick(v, block_idx) for k, v in data["ds"].items()}}
+
+        def log_post(theta, block_idx, data):
+            """One walker's posterior: block ``block_idx``'s datasets."""
+            return post(theta, one_block(block_idx, data))
+
+        group_ids = np.repeat(np.arange(K), B)
+        fit = _SeededLWalker(
+            list(self.terms), self.spec, np.asarray(pos0, np.float64), n_walkers=K * B,
+            seed=seed, walker_jitter=0.0, dtype=self.dtype, device=self.device,
+            config=config, aux=torch.as_tensor(group_ids), group_ids=group_ids,
+            n_groups=K, log_posterior=log_post, posterior_data=data,
+            batched_log_posterior=batched_log_post,
+            l_seed=self.state.l_matrix[0].detach().clone())
+        if fit.config.history_walkers and fit.config.history_walkers < K * B:
+            # scoring and ranking need every block in the history
+            fit.config = dataclasses.replace(fit.config, history_walkers=0)
+        return fit
+
+    def _holdout_data(self, name: str, holdouts) -> dict:
+        """The K leave-out blocks' stacked data (:meth:`_joint_blocks`):
+        each holdout, a boolean keep-mask over the dataset-major real
+        points, zeroes the held-out points' mask, rebuilt dataset by
+        dataset so each dataset's cached constants are exact for its
+        reduced points (JAX hierarchical.py:1174-1200)."""
+        mask_np = _host(self._stacked.mask).astype(np.float64)        # (S, N)
+        flat = mask_np.reshape(-1)
+        real_pos = np.nonzero(flat > 0.0)[0]
+        blocks = []
+        for keep in holdouts:
+            keep = np.asarray(keep)
+            if keep.shape != (real_pos.size,):
+                raise ValueError(
+                    f"{name}: holdout mask has shape {keep.shape}, expected "
+                    f"({real_pos.size},) (dataset-major real-point axis)")
+            new_flat = flat.copy()
+            new_flat[real_pos] *= keep.astype(np.float64)
+            new_mask = new_flat.reshape(mask_np.shape)
+            blocks.append([Dataset(x=ds.x, y=ds.y, sigma=ds.sigma, n=ds.n,
+                                   mask=torch.as_tensor(new_mask[s], dtype=ds.mask.dtype,
+                                                        device=ds.mask.device))
+                           for s, ds in enumerate(self._datasets)])
+        return self._joint_blocks(blocks)
+
+    @property
+    def _n_real_points(self) -> int:
+        """Length of the dataset-major real-point axis, the axis of every
+        joint pointwise verb (waic, loo, loo_pit, the refit holdouts)."""
+        return int(torch.count_nonzero(self._stacked.mask > 0.0))
+
+    def _refit_cv(self, name: str, holdouts, n_steps: int, temperature: float,
+                  walkers_per_dataset: int, burn_fraction: float, max_samples: int,
+                  seed: int):
+        """Leave-out refits of the joint posterior as the adaptation groups
+        of one walker, the hook ``diagnostics._batched_refit`` takes for
+        ``reloo`` and ``kfold`` (JAX hierarchical.py:1132-1229).
+
+        Each holdout is a boolean keep-mask over the dataset-major real
+        points (:meth:`_holdout_data`).  Each block's walkers start at a resample of this
+        fit's live ensemble (``np.random.default_rng(seed)``, JAX's draws)
+        and its L at this fit's adapted factor; then ``diagnostics.
+        _run_refit``: the anneal, ``reset``, ``max(2000, n_steps // 2)``
+        mala steps, the burn.  Returns ``(fit, score_block)``,
+        ``score_block(j) -> (n, N_real)`` the original data's pointwise
+        log-likelihood under block j's draws (:meth:`_pointwise_ll`)."""
+        from .diagnostics import _require_per_point, _run_refit
+        from .fit import history_block_columns
+
+        _require_per_point(name, self._likelihood)
+        K, B, d = len(holdouts), int(walkers_per_dataset), self.spec.ndim
+        rng = np.random.default_rng(seed)
+        live = _host(self.state.position).astype(np.float64)           # (W, d)
+        pos0 = live[rng.integers(0, live.shape[0], size=K * B)]
+        fit = self._grouped_joint_walker(self._holdout_data(name, holdouts), K, B, seed,
+                                         pos0)
+        _run_refit(fit, n_steps, temperature, burn_fraction)
+        cache: dict = {}
+
+        def score_block(j):
+            if "pos" not in cache:
+                pos, _ = fit._history(None)                            # (T, K*B, d)
+                cache["pos"] = np.asarray(pos)
+                cache["cols"] = history_block_columns(fit, cache["pos"].shape[1])
+            block = cache["pos"][:, cache["cols"][j], :].reshape(-1, d)
+            idx = np.unique(np.linspace(0, block.shape[0] - 1,
+                                        min(max_samples, block.shape[0])).astype(int))
+            # the original (unreduced) data at the decoded parameters
+            return self._pointwise_ll(block[idx])
+
+        return fit, score_block
+
+    def logo(self, n_steps: int = 6000, temperature: float = 2.0,
+             walkers_per_dataset: int = 64, burn_fraction: float = 0.3,
+             max_samples: int = 128, n_z: int = 16, seed: int = 0) -> LOGOResult:
+        """Leave-one-group-out CV: does the population predict a dataset it
+        never saw? (JAX hierarchical.py:1231-1334).
+
+        For each dataset s the joint posterior is refit with all of s's
+        points masked out (:meth:`_refit_cv`: the S refits as the groups of
+        one walker), then ``elpd_s = log E[p(y_s | theta_new)]``,
+        ``theta_new`` decoded from block s's draws with the held-out group's
+        coordinates redrawn from their priors ``n_z`` times a draw (pooled
+        z ~ N(0, 1), non-pooled locals from ``local_priors``; numpy,
+        ``default_rng(seed + 1)``).  Needs a complete prior: a held-out
+        group's flat local would make its refit improper and leave nothing
+        to draw."""
+        if not self._complete_prior:
+            raise ValueError(
+                "logo: non-pooled locals without local_priors make the "
+                "held-out group's refit posterior improper and give the "
+                "new-group predictive nothing to draw from — declare "
+                "local_priors for every non-pooled name")
+        from .diagnostics import grouped_refit_health
+        from .fit import history_block_columns
+
+        mask_np = _host(self._stacked.mask)
+        S, N = self.n_datasets, mask_np.shape[1]
+        ds_of_real = np.nonzero(mask_np.reshape(-1) > 0.0)[0] // N
+        fit, _ = self._refit_cv("logo", [ds_of_real != s for s in range(S)], n_steps,
+                                temperature, walkers_per_dataset, burn_fraction,
+                                max_samples, seed)
+        refit_ok = grouped_refit_health(fit, "logo")
+
+        pos, _ = fit._history(None)                                    # (T, S*B, d)
+        pos = np.asarray(pos, np.float64)
+        cols = history_block_columns(fit, pos.shape[1])
+        dp, dl = len(self.pooled), self.local_spec.ndim
+        pooled_cols = np.asarray(self._pooled_cols)
+        np_cols = [j for j in range(dl) if j not in set(pooled_cols.tolist())]
+        rng = np.random.default_rng(seed + 1)
+        elpd = np.empty(S)
+        for s in range(S):
+            block = pos[:, cols[s], :].reshape(-1, self.spec.ndim)
+            idx = np.unique(np.linspace(0, block.shape[0] - 1,
+                                        min(max_samples, block.shape[0])).astype(int))
+            draws = np.repeat(block[idx], n_z, axis=0)                 # (n * n_z, d)
+            lo = self._n_hyper + s * dl
+            draws[:, lo + pooled_cols] = rng.standard_normal((draws.shape[0], dp))
+            for j in np_cols:
+                k = self.local_spec.keys[j]
+                draws[:, lo + j] = np.asarray(self._local_dists[k].sample(rng, draws.shape[0]))
+            joint = self._pointwise_ll(draws)[:, ds_of_real == s].sum(axis=1)
+            m = joint.max()
+            if not np.isfinite(m):
+                # every draw underflowed: the population cannot describe
+                # this group, a -inf elpd, not a NaN
+                elpd[s] = -np.inf
+                continue
+            elpd[s] = m + np.log(np.mean(np.exp(joint - m)))
+        # the standard error over the finite groups (a -inf makes var NaN)
+        fin = elpd[np.isfinite(elpd)]
+        se = float(np.sqrt(fin.size * np.var(fin, ddof=1))) if fin.size > 1 else 0.0
+        return LOGOResult(elpd=float(elpd.sum()), se=se, elpd_per_dataset=elpd,
+                          refit_ok=refit_ok)

@@ -1,6 +1,6 @@
 """NV-center magnetometry pipeline (nv-specific.lisp).
 
-Port of ``lisp_mcmc_tpu/nv.py`` but its hierarchical fit:
+Port of ``lisp_mcmc_tpu/nv.py``:
   - data loaders: per-column spectrum separation (``nv-data->separated``,
     nv-specific.lisp:5-6) and directory ingestion with ';' delimiters
     (``nv-dir->data``, 8-10);
@@ -16,11 +16,10 @@ Port of ``lisp_mcmc_tpu/nv.py`` but its hierarchical fit:
   - the scan-grid export (76-95);
   - a scan grid of spectra on one frequency grid fitted as one ensemble
     (:class:`BatchedNVFit`, :func:`fit_nv_spectra_batched`), the batched
-    walker set of ``batched.py`` with the pipeline's defaults.
-
-``HierarchicalNVFit`` waits for the refit-CV family of the hierarchical
-fit (ROADMAP Queue 1 step 3b); ``hierarchical.HierarchicalFit`` itself is
-ported.
+    walker set of ``batched.py`` with the pipeline's defaults;
+  - the scan grid with partial pooling (:class:`HierarchicalNVFit`), the
+    hierarchical fit of ``hierarchical.py`` with the physics boxes as its
+    default population and local priors.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import numpy as np
 from .batched import BatchedFit
 from .expressions import walker_with_expression
 from .fit import Walker, walker_create
+from .hierarchical import HierarchicalFit
 from .io import get_filename, read_file_data
 from .likelihoods import log_likelihood_normal
 from .models import double_lorentzian_bg
@@ -49,6 +49,7 @@ __all__ = [
     "walker_field_offset",
     "export_scan_grid",
     "BatchedNVFit",
+    "HierarchicalNVFit",
     "fit_nv_spectra_batched",
 ]
 
@@ -247,6 +248,69 @@ class BatchedNVFit(BatchedFit):
     def field_offsets(self):
         """Each spectrum's field offset in Oe (``walker-field-offset``,
         nv-specific.lisp:68-69): (mu2 - mu1) / 2 / 2.8."""
+        return self.expressions_per_dataset(FIELD_OFFSET_EXPRESSION)
+
+
+class HierarchicalNVFit(HierarchicalFit):
+    """A scan grid with partial pooling (JAX ``HierarchicalNVFit``,
+    nv.py:276-365): :class:`hierarchical.HierarchicalFit` with the
+    pipeline's defaults.  The reference fits every spectrum on its own
+    (``dir->nv-walkers``, nv-specific.lisp:58-66); here the linewidth and
+    background, properties of the one device, pool through a population by
+    default (``pooled=("sigma", "bg0")``; ``None`` pools everything) and
+    the resonances and amplitudes stay per pixel.
+
+    Defaults from the physics boxes scaled to the pooled y range
+    (``_nv_boxes``): a pooled parameter's ``mu ~ Uniform(box)``, ``tau ~
+    LogNormal(log(span / 8), 1)``; a non-pooled local its box as a
+    Uniform, so the prior is complete.  ``hyper`` and ``local_priors``
+    merge onto these per key.  The cross-parameter constraints (mu2 - mu1
+    >= 6 MHz, the scale ratio) are no product of 1-D distributions and
+    stay out of the pooled prior; a pooled parameter's box bounds its
+    population mean only.  ``proposal="auto"`` takes block proposals from
+    walk dimension 96.  ``device=None`` means the GPU."""
+
+    def __init__(self, spectra, n_walkers: int = 256, seed: int = 0,
+                 model=double_lorentzian_bg, pooled=("sigma", "bg0"), hyper=None,
+                 local_priors=None, dtype=None, config=None, log_likelihood=None,
+                 proposal: str = "auto", correlation: str = "diag", corr_prior=None,
+                 device=None):
+        from .priors import LogNormal, Uniform
+
+        if len(spectra) < 2:
+            raise ValueError("HierarchicalNVFit: need >= 2 spectra to "
+                             "pool (one spectrum has no population)")
+        _require_shared_grid(spectra, "HierarchicalNVFit")
+        boxes = _nv_boxes(np.concatenate([np.asarray(y, np.float64) for _, y in spectra]))
+        pooled = list(boxes) if pooled is None else list(pooled)
+        # both override maps merge onto the box defaults, key by key
+        hyper = dict(hyper or {})
+        for p in pooled:
+            if p not in hyper and p in boxes:
+                lo, hi = boxes[p]
+                hyper[p] = (Uniform(lo, hi), LogNormal(float(np.log((hi - lo) / 8.0)), 1.0))
+        local_priors = dict(local_priors or {})
+        for k in boxes:
+            if k not in pooled and k not in local_priors:
+                local_priors[k] = Uniform(*boxes[k])
+        super().__init__(
+            model, spectra, [guess_nv_params(y) for _, y in spectra],
+            data_error=[np.full(len(y), nv_data_std_dev(y)) for _, y in spectra],
+            pooled=pooled, hyper=hyper, local_priors=local_priors,
+            log_likelihood=log_likelihood, n_walkers=n_walkers, seed=seed, dtype=dtype,
+            config=config, proposal=proposal, correlation=correlation,
+            corr_prior=corr_prior, device=device)
+
+    @property
+    def n_spectra(self) -> int:
+        return self.n_datasets
+
+    def best_params_per_spectrum(self):
+        return self.params_per_dataset("best")
+
+    def field_offsets(self):
+        """Each pixel's field offset in Oe (``walker-field-offset``,
+        nv-specific.lisp:68-69) at the decoded per-pixel best."""
         return self.expressions_per_dataset(FIELD_OFFSET_EXPRESSION)
 
 

@@ -19,8 +19,8 @@ __all__ = ["autocorrelation", "effective_sample_size", "split_rhat",
 def autocorrelation(chains, max_lag: int | None = None):
     """Normalized autocorrelation per chain via FFT.
 
-    ``chains``: (T, W) samples.  Returns (L, W) autocorrelations for lags
-    0..L-1 where L = ``max_lag`` or T.
+    ``chains``: (T, W, ...) samples.  Returns (L, W, ...) autocorrelations
+    for lags 0..L-1 where L = ``max_lag`` or T.
     """
     chains = torch.as_tensor(chains)
     T = chains.shape[0]
@@ -31,7 +31,7 @@ def autocorrelation(chains, max_lag: int | None = None):
     f = torch.fft.rfft(x, n=n, dim=0)
     acov = torch.fft.irfft(f * torch.conj(f), n=n, dim=0)[:T]
     lags = torch.arange(T, 0, -1, dtype=acov.dtype, device=acov.device)
-    acov = acov / lags[:, None]                      # unbiased normalization
+    acov = acov / lags.reshape((T,) + (1,) * (acov.ndim - 1))   # unbiased normalization
     var0 = torch.where(acov[0] > 0, acov[0], 1.0)
     return (acov / var0)[:L]
 
@@ -39,15 +39,16 @@ def autocorrelation(chains, max_lag: int | None = None):
 def effective_sample_size(chains):
     """ESS with Geyer's initial positive sequence truncation.
 
-    ``chains``: (T, W).  Returns the total ESS over all W chains (0-d).
-    Pairs consecutive-lag autocorrelations and truncates at the first
+    ``chains``: (T, W, ...).  Returns the total ESS over the W chains, one
+    for each entry of the trailing axes (0-d for (T, W)).  Pairs
+    consecutive-lag autocorrelations and truncates at the first
     non-positive pair sum.
     """
     chains = torch.as_tensor(chains)
-    T, W = chains.shape
+    T, rest = chains.shape[0], chains.shape[1:]
     rho = autocorrelation(chains)
     n_pairs = (T - 1) // 2
-    pair = rho[1:1 + 2 * n_pairs].reshape(n_pairs, 2, W).sum(dim=1)   # (P, W)
+    pair = rho[1:1 + 2 * n_pairs].reshape((n_pairs, 2) + rest).sum(dim=1)   # (P, W, ...)
     # Monotone mask: True until the first non-positive pair.
     keep = torch.cumprod((pair > 0).to(torch.int32), dim=0).bool()
     tau = 1.0 + 2.0 * torch.where(keep, pair, 0.0).sum(dim=0)        # (W,)
@@ -55,7 +56,7 @@ def effective_sample_size(chains):
     # A frozen chain (zero variance) carries one sample of information,
     # not T independent ones (lisp_mcmc_tpu/ops/reductions.py:57-63).
     moving = chains.var(dim=0, correction=0) > 0
-    return torch.where(moving, T / tau, 1.0).sum()
+    return torch.where(moving, T / tau, 1.0).sum(dim=0)
 
 
 def split_rhat(chains):
@@ -107,10 +108,12 @@ def rank_normalized_rhat(chains):
 
 def tail_ess(chains):
     """Tail ESS: the smaller ESS of the indicator chains ``x <= q05`` and
-    ``x >= q95`` of ``(T, W)`` chains."""
+    ``x >= q95`` of ``(T, W)`` chains; ``(T, W, ...)`` chains give one for
+    each entry of the trailing axes, each with its own quantiles."""
     chains = torch.as_tensor(chains)
-    q05 = nth_percentile(chains, 5.0, axis=None)
-    q95 = nth_percentile(chains, 95.0, axis=None)
+    flat = chains.reshape((-1,) + chains.shape[2:])
+    q05 = nth_percentile(flat, 5.0, axis=0)
+    q95 = nth_percentile(flat, 95.0, axis=0)
     lo = effective_sample_size((chains <= q05).to(chains.dtype))
     hi = effective_sample_size((chains >= q95).to(chains.dtype))
     return torch.minimum(lo, hi)

@@ -1,15 +1,15 @@
 """Simulation-based calibration: validate the whole fitting pipeline.
 
-Port of ``lisp_mcmc_tpu/sbc.py`` (``sbc_check``; the hierarchical study,
-``sbc_check_hierarchical``, waits for the hierarchical fit's grouped joint
-walker, ROADMAP Queue 1 step 3b).  SBC (Talts et al. 2018) draws
+Port of ``lisp_mcmc_tpu/sbc.py``: ``sbc_check`` and the partial-pooling
+study ``sbc_check_hierarchical``.  SBC (Talts et al. 2018) draws
 parameters from the prior, simulates a dataset from each, fits every
 dataset, and ranks each truth among its posterior draws: a calibrated
 pipeline gives uniform ranks, and any defect (a biased kernel, an unburnt
 anneal, a mis-scaled noise model, a prior/simulator mismatch) shows as
 non-uniform ranks.  All simulated datasets fit as one
-:class:`~lisp_mcmc_torch.BatchedFit` ensemble on the GPU (the plain batched
-posterior: neither CUDA kernel has a per-walker dataset).  The truths,
+:class:`~lisp_mcmc_torch.BatchedFit` ensemble on the GPU, and all simulated
+hierarchical grids as the groups of one grouped joint walker (the plain
+batched posterior both: neither CUDA kernel has a per-walker dataset).  The truths,
 datasets and starting guesses come from one numpy Generator in the JAX
 package's order, so both packages simulate the same study from a seed.
 """
@@ -22,7 +22,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-__all__ = ["SBCResult", "sbc_check"]
+__all__ = ["SBCResult", "sbc_check", "sbc_check_hierarchical"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +151,15 @@ def _rank_study(fit, n_sims: int, B: int, truths, keys, n_draws: int,
                      p_values=p_values, true_params=truths, sim_ok=sim_ok)
 
 
+def _simulated_mean(function, x, params: Mapping) -> np.ndarray:
+    """``function(x, params)`` in float64 on the host, as a (P,) array."""
+    x_t = torch.as_tensor(x, dtype=torch.float64)
+    with torch.no_grad():
+        mu = function(x_t, {k: torch.tensor(float(v), dtype=torch.float64)
+                            for k, v in params.items()})
+    return np.broadcast_to(np.asarray(mu.numpy(), np.float64), x.shape[:1]).copy()
+
+
 def sbc_check(
     function: Callable,
     bounds: Mapping,
@@ -204,16 +213,11 @@ def sbc_check(
 
     x = np.asarray(x, np.float64)
     draw_y = _observation_model(simulate, log_likelihood, data_error, x)
-    x_t = torch.as_tensor(x, dtype=torch.float64)
 
     datasets, guesses = [], []
     for i in range(n_sims):
         p_true = dict(zip(keys, truths[i]))
-        with torch.no_grad():
-            mu = function(x_t, {k: torch.tensor(float(v), dtype=torch.float64)
-                                for k, v in p_true.items()})
-        mu = np.broadcast_to(np.asarray(mu.numpy(), np.float64), x.shape[:1]).copy()
-        datasets.append((x, draw_y(rng, mu, p_true)))
+        datasets.append((x, draw_y(rng, _simulated_mean(function, x, p_true), p_true)))
         # an independent prior draw as the start: starting at the truth
         # would mask burn-in defects, which SBC audits
         guesses.append(dict(zip(keys, spec.sample(rng, 1, keys)[0])))
@@ -237,3 +241,107 @@ def sbc_check(
     fit.burn_steps(int(len(fit) * burn_fraction))
 
     return _rank_study(fit, n_sims, B, truths, keys, n_draws, n_bins, "sbc_check")
+
+
+def sbc_check_hierarchical(
+    function: Callable,
+    x,
+    params: Mapping,
+    n_datasets: int,
+    data_error=None,
+    *,
+    hyper: Mapping,
+    pooled=None,
+    local_priors: Mapping | None = None,
+    n_sims: int = 40,
+    walkers_per_sim: int = 32,
+    n_steps: int = 4000,
+    temperature: float = 2.0,
+    burn_fraction: float = 0.5,
+    n_draws: int = 63,
+    n_bins: int | None = None,
+    seed: int = 0,
+    config=None,
+    dtype=None,
+    device=None,
+    simulate: Callable | None = None,
+    log_likelihood: Callable | None = None,
+    sampling_steps: int = 0,
+    sampling_kernel: str = "mala",
+    correlation: str = "diag",
+    corr_prior=None,
+) -> SBCResult:
+    """SBC of the partial-pooling pipeline (JAX ``sbc_check_hierarchical``,
+    sbc.py:323-477): :class:`~lisp_mcmc_torch.HierarchicalFit` calibrated
+    end to end over its walk-space prior, a product of 1-D distributions.
+
+    A template fit on placeholder data (``n_datasets`` datasets on the
+    grid ``x``, ``params`` its guess, ``hyper`` naming every pooled
+    parameter, ``local_priors`` every non-pooled one) gives the walk space.
+    Per simulation: a walk-space truth from ``template.prior_spec``,
+    decoded to each dataset's parameters, and ``n_datasets`` datasets
+    simulated by the likelihood's generative twin (``simulate(rng, mu)``
+    overrides it; one observation model a dataset, so per-dataset errors
+    stay per dataset).  All ``n_sims`` joint posteriors run as the groups
+    of one walker (``HierarchicalFit._grouped_joint_walker``) from
+    independent prior draws, ``walkers_per_sim`` each; with
+    ``sampling_steps`` a cold ``sampling_kernel`` phase follows and is
+    ranked alone.  The truths, the simulated data and the starts come from
+    ``np.random.default_rng(seed)`` in JAX's order.  Returns an
+    :class:`SBCResult` over the walk-space names (``{p}__mu``,
+    ``{p}__tau``, ``{p}__z{s}``, ``{k}__{s}``) with the walk-space truths.
+    ``device=None`` means the GPU."""
+    from .batched import BatchedFit
+    from .data import Dataset
+    from .hierarchical import HierarchicalFit
+
+    S = int(n_datasets)
+    x = np.asarray(x, np.float64)
+    if n_bins is None:
+        n_bins = int(max(2, min(20, n_sims // 5)))
+    template = HierarchicalFit(
+        function, [(x, np.zeros_like(x)) for _ in range(S)], dict(params),
+        data_error=data_error, pooled=pooled, hyper=dict(hyper), local_priors=local_priors,
+        log_likelihood=log_likelihood, n_walkers=2, seed=seed, dtype=dtype, config=config,
+        correlation=correlation, corr_prior=corr_prior, device=device)
+    if template.prior_spec is None:
+        raise ValueError(
+            "sbc_check_hierarchical: the prior is incomplete — declare "
+            "local_priors for every non-pooled parameter (SBC draws "
+            "truths from the full declared prior)")
+    keys = template.spec.keys
+    rng = np.random.default_rng(seed)
+    truths = template.prior_spec.sample(rng, n_sims, keys)           # walk space
+    nat = template._decode_np(np.asarray(truths, np.float64))       # (n, S, dl)
+
+    local_keys = template.local_spec.keys
+    if data_error is None:
+        errors = [None] * S
+        draw_ys = [_observation_model(simulate, log_likelihood, None, x,
+                                      caller="sbc_check_hierarchical")] * S
+    else:
+        errors = BatchedFit._normalize_errors(data_error, [(x, np.zeros_like(x))] * S)
+        draw_ys = [_observation_model(simulate, log_likelihood, errors[s], x,
+                                      caller="sbc_check_hierarchical")
+                   for s in range(S)]
+    blocks = []
+    for i in range(n_sims):
+        dsets = []
+        for s in range(S):
+            p_true = dict(zip(local_keys, nat[i, s]))
+            y = draw_ys[s](rng, _simulated_mean(function, x, p_true), p_true)
+            dsets.append(Dataset.create(x, y, errors[s], dtype=template.dtype,
+                                        device=template.device, min_len=len(x)))
+        blocks.append(dsets)
+
+    B = walkers_per_sim
+    pos0 = template.prior_spec.sample(rng, n_sims * B, keys)
+    fit = template._grouped_joint_walker(template._joint_blocks(blocks), n_sims, B, seed,
+                                         np.asarray(pos0), config=config)
+    fit.adaptive_steps(n_steps, temperature=temperature, auto=None)
+    if sampling_steps > 0:
+        fit.reset()
+        fit.sampling_steps(sampling_steps, kernel=sampling_kernel)
+    fit.burn_steps(int(len(fit) * burn_fraction))
+    return _rank_study(fit, n_sims, B, truths, keys, n_draws, n_bins,
+                       "sbc_check_hierarchical")

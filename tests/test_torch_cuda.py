@@ -36,7 +36,11 @@ draws (rtol 1e-8 on the ELBO trace); the hierarchical posterior of the
 pooling phase's shape (8 spectra x 334 points, d = 54) in float32 on the
 card against float64 on the CPU (1e-4 of max(|lp|, 1)), launching
 neither kernel, and kernel 1 at ``compare_pooling``'s pooled 8-term shape
-(W = 8192) against its plain version.
+(W = 8192) against its plain version; ``HierarchicalFit.logo`` on the
+card (float64) against the closed-form new-group predictive of a
+conjugate hierarchy (JAX tests/test_hierarchical.py:488-519, its
+tolerances); a checkpoint of a flagship walker saved on the card mid-run
+resuming bit for bit on kernel 1 and on the chunk kernel.
 """
 
 import dataclasses
@@ -861,3 +865,89 @@ def test_fused_kernel_pooled_eight_terms_matches_plain(cuda, dtype, rtol):
     got = tlk.fused_posterior(pos, post)
     assert tlk.fused_posterior.launches == before + 1
     assert tlk.posterior_rel_err(got, tlk.fused_posterior_plain(pos, post), post) <= rtol
+
+
+# the conjugate hierarchy of JAX tests/test_hierarchical.py:38-99
+SIGMA, TAU, M0, S0, N_PTS = 0.4, 0.8, 1.0, 2.0, 8
+YBAR = np.asarray([0.2, 1.1, 2.4, -0.6])
+
+
+def _conjugate_datasets():
+    """Each dataset's sample mean exactly YBAR[s]."""
+    x = np.linspace(0.0, 1.0, N_PTS)
+    rng = np.random.default_rng(7)
+    out = []
+    for ybar in YBAR:
+        e = rng.standard_normal(N_PTS) * SIGMA
+        out.append((x, ybar + e - e.mean()))
+    return out
+
+
+def _exact_logo():
+    """log p(y_s | y_-s) of the tau-pinned hierarchy in closed form."""
+    from scipy.stats import multivariate_normal
+
+    v_t = TAU ** 2 + SIGMA ** 2 / N_PTS
+    out = []
+    for s, (_, y) in enumerate(_conjugate_datasets()):
+        rest = [t for t in range(len(YBAR)) if t != s]
+        prec = 1.0 / S0 ** 2 + len(rest) / v_t
+        mean = (M0 / S0 ** 2 + sum(YBAR[t] for t in rest) / v_t) / prec
+        cov = SIGMA ** 2 * np.eye(N_PTS) + (1.0 / prec + TAU ** 2) * np.ones((N_PTS, N_PTS))
+        out.append(multivariate_normal(mean * np.ones(N_PTS), cov).logpdf(y))
+    return np.asarray(out)
+
+
+def test_logo_closed_form_on_the_card(cuda):
+    """Leave-one-group-out CV on the card lands on the conjugate
+    hierarchy's exact new-group predictive density, per dataset (JAX
+    tests/test_hierarchical.py:505-519: 0.6 a group, 1.2 in all)."""
+    def const_model(x, p):
+        return p["c"] + 0.0 * x
+
+    # the parent fit by rwm (JAX's by chees): it only seeds the refits'
+    # starts and L, and 6000 chees steps of 96 walkers are host-paced on a card
+    fit = tfit.HierarchicalFit(
+        const_model, _conjugate_datasets(), {"c": 0.5}, data_error=SIGMA,
+        hyper={"c": (tfit.Gaussian(M0, S0), tfit.LogNormal(float(np.log(TAU)), 0.01))},
+        n_walkers=96, seed=0, dtype=torch.float64, device=cuda)
+    fit.adaptive_steps(6000, auto=None)
+    fit.burn_steps(4000)
+    res = fit.logo(n_steps=4000, walkers_per_dataset=64, max_samples=128, n_z=64, seed=0)
+    exact = _exact_logo()
+    assert res.elpd_per_dataset.shape == (4,)
+    np.testing.assert_allclose(res.elpd_per_dataset, exact, atol=0.6)
+    assert res.elpd == pytest.approx(float(exact.sum()), abs=1.2)
+    assert res.se > 0.0 and "elpd" in repr(res)
+
+
+def test_checkpoint_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """A flagship walker saved on the card mid-run, loaded and run on (200
+    steps on kernel 1, then one chunk on the chunk kernel) ends where the
+    uninterrupted walker does, bit for bit."""
+    from lisp_mcmc_torch import checkpoint
+    from lisp_mcmc_torch.roofline import synthetic_flagship
+
+    x, y = synthetic_flagship()
+
+    def run(w):
+        w.adaptive_steps(200, auto=None)
+        w.config = dataclasses.replace(w.config, posterior_impl="chunk_kernel")
+        w.adaptive_steps(200, auto=None, collect_history=False)
+        w.config = dataclasses.replace(w.config, posterior_impl="auto")
+
+    w = tfit.walker_create(function=lorder_mixed_bg, data=(x, y), params=FLAGSHIP,
+                           data_error=1e-7, n_walkers=4096, walker_jitter=0.05, seed=1,
+                           dtype=torch.float32, device=cuda)
+    w.adaptive_steps(400, auto=None)
+    path = str(tmp_path / "mid.npz")
+    checkpoint.walker_save(w, path)
+    launches = (tlk.fused_posterior.launches, tck.chunk_rwm.launches)
+    run(w)
+    assert tlk.fused_posterior.launches > launches[0] and tck.chunk_rwm.launches > launches[1]
+    r = checkpoint.walker_load(path, device=cuda)
+    assert r.generator.device.type == "cuda"
+    run(r)
+    for k in ("position", "logprob", "best_position", "best_logprob", "l_matrix"):
+        assert torch.equal(getattr(r.state, k), getattr(w.state, k)), k
+    np.testing.assert_array_equal(r._history()[0], w._history()[0])

@@ -28,8 +28,10 @@ points, W <= 64):
 - ``prior_predictive`` and ``predict_new`` from one seed (the decoded
   draws' curves at 1e-12; replicates with JAX's normal stream injected);
 - ``laplace_approx`` on a conjugate normal-normal hierarchy through the
-  fit's ``prior_spec`` (1e-8, as the evidence tests);
-- ``kfold`` and ``reloo`` refused by name, before any refit.
+  fit's ``prior_spec`` (1e-8, as the evidence tests).
+
+The refit cross-validation of the fit (``kfold``, ``reloo``, ``logo``) is
+held against JAX in ``test_torch_hier_refit.py``.
 """
 
 import dataclasses
@@ -575,22 +577,3 @@ def test_laplace_on_a_conjugate_hierarchy_matches_jax():
     assert tr.lp_map == pytest.approx(jr.lp_map, rel=1e-8)
     np.testing.assert_allclose(tr.cov, jr.cov, rtol=1e-8, atol=1e-14)
     assert tr.log_z == pytest.approx(jr.log_z, rel=1e-8)
-
-
-# ------------------------------------------------------------ refusals
-
-
-def test_refit_cross_validation_is_refused_by_name(fitted_pair, monkeypatch):
-    _, t = fitted_pair["diag_complete"]
-    with pytest.raises(ValueError, match="cannot be refit"):
-        td._global_batched_refit(t.dataset_view(0), "kfold", [], 1, 1.0, 1, 0.5, 1, 0)
-
-    def never(*a, **k):
-        raise AssertionError("reached _global_batched_refit")
-
-    monkeypatch.setattr(td, "_global_batched_refit", never)
-    for verb, kw in ((td.kfold, dict(k=2)), (td.reloo, dict(k_threshold=-1.0))):
-        with pytest.raises(ValueError, match="refit-CV family") as e:
-            verb(t, **kw)
-        assert "ROADMAP Queue 1 step 3b" in str(e.value)
-    assert not hasattr(t, "logo")
