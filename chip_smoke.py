@@ -41,6 +41,11 @@ an H100) and the CUDA toolkit.  It
 9. runs the flagship journey on the default path (fused kernel per step):
    ``walker_create`` + ``adaptive_steps(30000, temperature=10)`` with
    history, then ``most_likely_step`` and ``ess_from_history``;
+9a. ``plotting``: every ``Walker`` plot verb of that journey's walker into
+    ``chiprun_out/plots/`` where matplotlib is installed (the plots' device
+    work alone where it is not: the envelope and the autocorrelation
+    curves), each timed; the envelope against its float64 CPU evaluation
+    and the curves against numpy's;
 10. runs the journey again with ``posterior_impl="chunk_kernel"``
     (``adaptive_steps(10000, collect_history=False)``);
 11. ``nv``: ``nv.fit_nv_file`` on a ';'-delimited file of the first
@@ -123,6 +128,13 @@ an H100) and the CUDA toolkit.  It
     positive-definite Laplace covariances; reports ms a step,
     chain-steps/sec, the device's busy share (two profiled chunks), peak
     memory;
+22a. ``shard``: two worker processes as a 2-rank gloo group on the card
+    (``lisp_mcmc_torch.parallel``, 65536 walkers a rank, kernel 1 with the
+    unsharded W's plan) and an NCCL world of one, beside ``batched_nv``:
+    rwm, mala (with the rescue), stretch and chees chunks against the
+    unsharded chunk, a sharded 20000-step flagship fit held to the
+    journey's gates, the all-reduces a chunk; kernel 1 at a rank's W/2
+    against its plain version;
 23. ``evidence``: ``synthetic.line_evidence_case`` (a line under a box
     prior, log Z in closed form) at W = 131072, float32:
     ``log_evidence(n_steps=16000, rungs=16, t_max=1e4)`` (the line twin of
@@ -2591,6 +2603,16 @@ def phase_criticism(counters, w, prior_walker):
                          walkers_per_dataset=8, dtype=torch.float32, device=DEVICE)
     nested = timed("nested_per_dataset", lambda: bf.nested_per_dataset(
         n_live=CRITICISM_NESTED_LIVE))
+    from lisp_mcmc_torch import plotting
+
+    out["plot_seconds"] = {
+        "loo_pit_plot": save_plot(lambda f: plotting.loo_pit_plot(pit, filename=f),
+                                  "criticism_loo_pit"),
+        "prior_sensitivity_plot": save_plot(
+            lambda f: plotting.prior_sensitivity_plot(sens, filename=f),
+            "criticism_prior_sensitivity"),
+        "ppc_plot": save_plot(lambda f: w.ppc_plot(take=take, filename=f),
+                              "criticism_ppc")}
 
     out.update({
         "waic": {"elpd": wa.elpd, "p_waic": wa.p_waic, "se": wa.se,
@@ -2937,6 +2959,14 @@ def phase_variational(ceilings, counters, ptxas):
             **VI_SBC))
     finally:
         batched.BatchedFit = real
+    from lisp_mcmc_torch import plotting
+
+    sbc_plot_seconds = {
+        "sbc_rank_plot": save_plot(lambda f: plotting.sbc_rank_plot(ok_run, filename=f),
+                                   "variational_sbc_ranks"),
+        "sbc_rank_plot_control": save_plot(
+            lambda f: plotting.sbc_rank_plot(bad_run, filename=f),
+            "variational_sbc_ranks_control")}
     # the busy share over 20-step chunks of the study's fit (as batched_nv)
     sfit = made[0]
     sfit.config = dataclasses.replace(sfit.config, chunk_size=VI_SBC_PROFILE_STEPS)
@@ -2948,7 +2978,8 @@ def phase_variational(ceilings, counters, ptxas):
                   "control_p_values": bad_run.p_values,
                   "fit_seconds": fit_secs, "ms_per_step": 1e3 * fit_secs[0] / VI_SBC["n_steps"],
                   "kernels_per_step": prof["kernels_per_chunk"] / VI_SBC_PROFILE_STEPS,
-                  "device_busy_share": prof["device_busy_share"]}
+                  "device_busy_share": prof["device_busy_share"],
+                  "plot_seconds": sbc_plot_seconds}
     del made, sfit
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
@@ -3214,6 +3245,13 @@ def phase_pooling(ceilings, counters, ptxas):
                       "kernels_per_step": p["kernels_per_chunk"] / POOL_PROFILE_STEPS,
                       "device_busy_share": p["device_busy_share"]}
     out["hierarchical_step"] = prof
+    from lisp_mcmc_torch import plotting
+
+    out["plot_seconds"] = {
+        f"forest_{name}": save_plot(lambda f: plotting.forest_plot(r.fits[name], "x0",
+                                                                    filename=f),
+                                    f"pooling_forest_{name}")
+        for name in ("partial", "independent")}
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
 
@@ -3842,6 +3880,473 @@ def phase_profile():
                     w.generator)
 
 
+# The plotting step (after the journey): every Walker plot verb of the
+# journey's walker (W = 131072, float32, the history keeping 4096 evenly
+# spaced walkers) into chiprun_out/plots/, each figure's seconds, where
+# matplotlib is installed; where it is not (the card's machine has none),
+# the plots' device work alone: the envelope and the autocorrelation
+# curves, each timed.  JAX's
+# corner plots draw every retained point of ``take`` steps (1000 by
+# default: 409,600 points a panel here, fifteen lower panels for six
+# parameters), which matplotlib takes seconds a panel to draw at this
+# scale (ROADMAP Queue 3); PLOT_TAKE keeps each scatter under
+# PLOT_MAX_POINTS.  Gates: the card's _fit_envelope (the top 66 % of
+# take = 1000's samples, capped at 20,000, over a 1000-point grid: 2e7
+# model evaluations in one batched call) against the same top samples
+# evaluated in float64 on the CPU, within PLOT_ENVELOPE_TOL of max |y|;
+# autocorrelation_plot's curves against the plain numpy reduction (float64
+# FFT of the same history), within PLOT_ACF_TOL.  Both tolerances were
+# fixed from a CPU rehearsal before the first card run (float32 against
+# float64 on the CPU, the journey's walker at W = 4096 after 4000 steps:
+# envelope 1.08e-4 of max |y|, the float32 model's own rounding; curves
+# 6.3e-6), at ~10x those.
+PLOT_TAKE = {"corner_plot": 1000, "all_corner_plots": 200}
+PLOT_MAX_POINTS = 2_000_000
+PLOT_ENVELOPE_TOL = 1e-3
+PLOT_ACF_TOL = 1e-4
+
+
+def envelope_reference(w, term_index=0, take=1000, grid_points=1000, fraction=0.66,
+                       rows=2048):
+    """``plotting._fit_envelope`` recomputed in float64 on the CPU from the
+    same top samples of the history, ``rows`` samples at a time:
+    ``(grid, y_best, y_lo, y_hi)`` as numpy arrays."""
+    import numpy as np
+    import torch
+
+    f64 = torch.float64
+    term = w.terms[term_index]
+    x = term.dataset.x[: term.dataset.n].detach().cpu().to(f64)
+    grid = torch.linspace(float(x.min()), float(x.max()), grid_points, dtype=f64)
+    pos, lp = w._history(take)
+    flat_pos = np.asarray(pos).reshape(-1, w.ndim)
+    flat_lp = np.asarray(lp).reshape(-1)
+    keep = min(max(1, int(len(flat_lp) * fraction)), 20_000)
+    params = torch.as_tensor(flat_pos[np.argsort(flat_lp)[-keep:]], dtype=f64)
+    lo = torch.full((grid_points,), np.inf, dtype=f64)
+    hi = torch.full((grid_points,), -np.inf, dtype=f64)
+    for i in range(0, keep, rows):
+        cols = {k: v[:, None] for k, v in w.spec.unflatten(params[i:i + rows]).items()}
+        ys = torch.broadcast_to(term.fn(grid, cols), (cols[w.spec.keys[0]].shape[0],
+                                                      grid_points))
+        lo, hi = torch.minimum(lo, ys.amin(dim=0)), torch.maximum(hi, ys.amax(dim=0))
+    best = w.spec.flatten(w.most_likely_params(), dtype=f64)
+    y_best = torch.broadcast_to(term.fn(grid, w.spec.unflatten(best)), (grid_points,))
+    return grid.numpy(), y_best.numpy(), lo.numpy(), hi.numpy()
+
+
+def acf_reference(chain, max_lag=None):
+    """The mean normalized autocorrelation over the walkers of a (T, W)
+    history, in float64 on the host (``ops.reductions.autocorrelation``'s
+    recipe: a zero-padded FFT, the unbiased normalization; numpy, with
+    scipy's FFT on every core)."""
+    import numpy as np
+    from scipy import fft
+
+    x = np.asarray(chain, np.float64)
+    T = x.shape[0]
+    x = x - x.mean(axis=0, keepdims=True)
+    n = 1 << (2 * T - 1).bit_length()
+    f = fft.rfft(x, n=n, axis=0, workers=-1)
+    acov = fft.irfft(f * np.conj(f), n=n, axis=0, workers=-1)[:T]
+    acov = acov / np.arange(T, 0, -1, dtype=np.float64)[:, None]
+    var0 = np.where(acov[0] > 0, acov[0], 1.0)
+    return (acov / var0)[: max_lag or T].mean(axis=1)
+
+
+def plot_checks(w, plotting):
+    """The envelope and the autocorrelation curves of ``w`` against their
+    plain float64 versions: ``{"envelope_rel_err", "acf_abs_err"}``."""
+    import numpy as np
+
+    got = plotting._fit_envelope(w, 0, 1000, 1000, 0.66)
+    ref = envelope_reference(w, 0, 1000, 1000, 0.66)
+    scale = max(float(np.abs(ref[1]).max()), float(np.abs(ref[2]).max()),
+                float(np.abs(ref[3]).max()))
+    env = max(float(np.abs(np.asarray(g, np.float64) - r).max()) for g, r in
+              zip(got[1:], ref[1:])) / scale
+    pos, _ = w._history(None)
+    acf = 0.0
+    for k, rho, _ in plotting._autocorrelation_curves(w, None, None, None):
+        want = acf_reference(np.asarray(pos)[:, :, w.spec.index(k)])
+        acf = max(acf, float(np.abs(np.asarray(rho, np.float64) - want).max()))
+    return {"envelope_rel_err": env, "acf_abs_err": acf, "envelope_keep":
+            min(max(1, int(np.asarray(w._history(1000)[1]).size * 0.66)), 20_000)}
+
+
+def phase_plotting(w):
+    """The plotting step (see the constants above) on the journey's walker."""
+    import numpy as np
+    import torch
+    from lisp_mcmc_torch import plotting
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "plots")
+    os.makedirs(out_dir, exist_ok=True)
+    drawn = plotting.plt is not None
+    out = {"phase": "plotting", "W": W_FLAGSHIP, "history": list(w._history()[0].shape),
+           "matplotlib": drawn, "seconds_by_figure": {}}
+    rows = {k: int(np.prod(w._history(t)[0].shape[:2])) for k, t in PLOT_TAKE.items()}
+    out["points_by_scatter"] = rows
+    check(max(rows.values()) <= PLOT_MAX_POINTS,
+          f"plotting: a scatter would draw {rows} points, over {PLOT_MAX_POINTS}")
+    figures = [
+        ("plot_data_and_fit", lambda f: w.plot_data_and_fit(filename=f)),
+        ("plot_residuals", lambda f: w.plot_residuals(filename=f)),
+        ("caterpillar_plots", lambda f: w.caterpillar_plots(filename=f)),
+        ("likelihood_plot", lambda f: w.likelihood_plot(filename=f)),
+        ("autocorrelation_plot", lambda f: w.autocorrelation_plot(filename=f)),
+        ("corner_plot", lambda f: w.corner_plot("x0", "linewidth",
+                                                take=PLOT_TAKE["corner_plot"], filename=f)),
+        ("all_corner_plots", lambda f: w.all_corner_plots(
+            take=PLOT_TAKE["all_corner_plots"], filename=f)),
+        ("param_histogram", lambda f: w.param_histogram("x0", filename=f)),
+        ("ppc_plot", lambda f: w.ppc_plot(filename=f)),
+    ]
+    if not drawn:
+        figures = [
+            ("envelope", lambda f: plotting._fit_envelope(w, 0, 1000, 1000, 0.66)),
+            ("autocorrelation_curves",
+             lambda f: plotting._autocorrelation_curves(w, None, None, None))]
+    for name, draw in figures:
+        path = os.path.join(out_dir, f"journey_{name}.png")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draw(path)
+        torch.cuda.synchronize()
+        out["seconds_by_figure"][name] = time.perf_counter() - t0
+        check(not drawn or os.path.getsize(path) > 0, f"plotting: {name} wrote nothing")
+    t0 = time.perf_counter()
+    out.update(plot_checks(w, plotting))
+    out["seconds_checks"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(out["envelope_rel_err"] <= PLOT_ENVELOPE_TOL,
+          f"plotting: the card's envelope is {out['envelope_rel_err']} of max|y| from "
+          f"the float64 CPU one (> {PLOT_ENVELOPE_TOL})")
+    check(out["acf_abs_err"] <= PLOT_ACF_TOL,
+          f"plotting: autocorrelation curves {out['acf_abs_err']} from numpy's "
+          f"(> {PLOT_ACF_TOL})")
+    return out
+
+
+def save_plot(fig_fn, name):
+    """Draw one figure of a later phase into chiprun_out/plots/: its
+    seconds (None where matplotlib is not installed)."""
+    from lisp_mcmc_torch import plotting
+
+    if plotting.plt is None:
+        return None
+    out_dir = os.path.join(ROOT, "chiprun_out", "plots")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.png")
+    t0 = time.perf_counter()
+    fig_fn(path)
+    secs = time.perf_counter() - t0
+    check(os.path.getsize(path) > 0, f"{name}: the plot wrote nothing")
+    return secs
+
+
+# How many cold steps the journey's walker needs after reset_to_most_likely
+# before audit's convergence verdict reads ok (ROADMAP Queue 3 item 3): one
+# adaptive run at T = 1 of up to CONVERGE_CAP steps, audit(take =
+# CRITICISM_TAKE) read every CONVERGE_READ steps from its on_chunk hook (so
+# the run refreshes L as one long run does), stopping at the first ok.
+CONVERGE_READ = 2000
+CONVERGE_CAP = 30000
+
+
+def measure_criticism_convergence(w):
+    """Restart ``w`` at its best point and step it cold, reading audit's
+    verdict every CONVERGE_READ steps until it reads ok or CONVERGE_CAP;
+    emits each reading (steps, ok, worst rank R-hat, worst tail ESS,
+    acceptance)."""
+    import torch
+
+    t0 = time.perf_counter()
+    w.reset_to_most_likely()
+    readings = []
+
+    def on_chunk(step, m):
+        if step % CONVERGE_READ:
+            return False
+        conv = w.audit(take=CRITICISM_TAKE).convergence
+        readings.append({"steps": step, "ok": conv["ok"],
+                         "rank_rhat": max(max(v) if isinstance(v, (list, tuple)) else v
+                                          for v in conv["rank_rhat"].values()),
+                         "tail_ess": min(conv["tail_ess"].values()),
+                         "acceptance": m["accept_rate"]})
+        return conv["ok"]
+
+    w.adaptive_steps(CONVERGE_CAP, temperature=1.0, auto=None, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    out = {"phase": "criticism_convergence", "W": W_FLAGSHIP, "read_every": CONVERGE_READ,
+           "take": CRITICISM_TAKE, "readings": readings,
+           "converged_at": readings[-1]["steps"] if readings and readings[-1]["ok"] else None,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+# The shard phase: chain-axis sharding (lisp_mcmc_torch.parallel) on the one
+# card.  Two worker processes (shard_worker) form a 2-rank gloo group on
+# localhost (NCCL refuses two ranks on one device); each holds 65536 of the
+# flagship's 131072 walkers, and gloo carries each all-reduce of CUDA
+# tensors through host memory (the transport only: every computation stays
+# on the card).  Kernel 1 evaluates a rank's walkers with the unsharded W's
+# launch plan (fused_plan(post, W, force=)), so each walker's sums run in
+# the unsharded order.  A third worker runs a world of one over NCCL.  The
+# workers start before batched_nv and overlap it.  Every rank first steps
+# SHARD_WARM rwm steps unsharded (the same on each), then:
+# - one rwm chunk sharded and the same chunk unsharded in the same worker:
+#   every position and logprob bit for bit equal, the moments within
+#   SHARD_MOMENT_RTOL of sqrt(m_ii) / sqrt(m_ii m_jj) (float32 summation
+#   rounding: the ranks' partial sums add in another order), one all-reduce;
+# - a SHARD_MALA_STEPS mala chunk with the rescue, a stretch chunk and a
+#   SHARD_CHEES_STEPS chees chunk likewise: positions within SHARD_RTOL (relative, per
+#   coordinate) of the unsharded chunk's (JAX tests/test_parallel.py holds
+#   these at rtol 1e-10 in float64; here float32, kernel 1's W/2 rescue and
+#   half-step evaluations at their own plan, autograd through the plain
+#   posterior at W/2);
+# - a SHARD_FIT_STEPS sharded adaptive fit from the test.lisp start
+#   (walker.shard()): the journey's gates (_quality), kernel-1 launches per
+#   rank == steps + 1 (its probe) at W/2;
+# - the NCCL world of one: the rwm chunk bit for bit, one all-reduce.
+# Rank 0 and the world of one compute the unsharded chunks (the gathered
+# sharded state is the same on every rank); rank 1 steps only its share.
+SHARD_RANKS = 2
+SHARD_WARM = 400
+SHARD_MALA_STEPS = 100
+SHARD_CHEES_STEPS = 20
+SHARD_FIT_STEPS = 20000
+SHARD_MOMENT_RTOL = 1e-4
+SHARD_RTOL = 1e-5
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_shard_workers():
+    """The shard phase's worker processes: SHARD_RANKS gloo ranks and the
+    NCCL world of one."""
+    port = _free_port()
+    procs = {f"rank{r}": _spawn(f"shard_worker({r}, {SHARD_RANKS}, {port})",
+                                f"shard_rank{r}") for r in range(SHARD_RANKS)}
+    procs["nccl"] = _spawn(f"shard_worker(0, 1, {_free_port()})", "shard_nccl")
+    return procs
+
+
+def _moment_err(a, b):
+    """Moments ``a`` against ``b`` (G, d) / (G, d, d), entry by entry
+    relative to sqrt(m_ii) and sqrt(m_ii m_jj) of ``b``."""
+    import torch
+
+    diag = torch.diagonal(b.m_outer, dim1=1, dim2=2).clamp_min(1e-30)
+    e_sum = ((a.m_sum - b.m_sum).abs() / diag.sqrt()).max()
+    e_out = ((a.m_outer - b.m_outer).abs()
+             / (diag[:, :, None] * diag[:, None, :]).sqrt()).max()
+    return max(float(e_sum), float(e_out), float((a.m_count - b.m_count).abs().max()))
+
+
+def shard_worker(rank, world, port):
+    """One rank of the shard phase (see the constants above): prints its
+    summary as the last line of its stdout."""
+    import dataclasses
+    import torch
+    from lisp_mcmc_torch.kernel import build_chunk_runner
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_plan, fused_posterior,
+                                                   prepare_fused_terms)
+    from lisp_mcmc_torch.parallel import (chain_comm, initialize_distributed, make_mesh,
+                                          shard_state)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    backend = "gloo" if world > 1 else "nccl"
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                           world_size=world, backend=backend, device=DEVICE, timeout=300)
+    mesh = make_mesh()
+    comm = chain_comm(mesh)
+    wl = W_FLAGSHIP // world
+    out = {"rank": rank, "world": world, "backend": comm.backend, "W": W_FLAGSHIP,
+           "W_rank": wl, "cases": {}}
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE)
+    w.adaptive_steps(SHARD_WARM, temperature=10.0, auto=None, collect_history=False)
+    start = w.state
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    plan = fused_plan(post, W_FLAGSHIP)
+    force = (plan["threads"], plan["R"], plan["S"])
+    out["plan"] = force
+
+    def natural(positions):
+        return fused_posterior(positions, post)
+
+    def forced(positions):
+        """Kernel 1 on a rank's walkers with the unsharded W's plan."""
+        return fused_posterior(positions, post,
+                               force=force if positions.shape[0] == wl else None)
+
+    def whole(st):
+        lo = comm.rank * st.position.shape[0]
+        _, rows = comm.exchange(None, torch.cat([st.position, st.logprob[:, None]], 1),
+                                lo, W_FLAGSHIP)
+        return rows[:, :-1], rows[:, -1]
+
+    def case(kernel, steps, flags):
+        cfg = dataclasses.replace(w.config, kernel=kernel, chunk_size=steps)
+        run, _ = build_chunk_runner(natural, w.ndim, cfg, eval_plain=w._log_post)
+        run_m, _ = build_chunk_runner(forced if kernel == "rwm" else natural, w.ndim, cfg,
+                                      eval_plain=w._log_post, mesh=mesh)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        (got, got_out), t_got = timed(lambda: run_m(
+            shard_state(start, mesh), *flags,
+            generator=torch.Generator(device=DEVICE).manual_seed(11)))
+        pos, lp = whole(got)
+        out = {"steps": steps, "collectives": int(got_out["collectives"]),
+               "accept_rate_sharded": float(got_out["accept_rate"]),
+               "seconds_sharded": t_got}
+        if comm.rank:
+            return out
+        (ref, ref_out), t_ref = timed(lambda: run(
+            start, *flags, generator=torch.Generator(device=DEVICE).manual_seed(11)))
+        rel = ((pos - ref.position).abs() / ref.position.abs().clamp_min(1e-30)).max()
+        return {**out, "positions_equal": bool(torch.equal(pos, ref.position)),
+                "logprobs_equal": bool(torch.equal(lp, ref.logprob)),
+                "position_rel_err": float(rel),
+                "moment_err": _moment_err(got, ref),
+                "l_rel_err": float(((got.l_matrix - ref.l_matrix).abs()
+                                    / ref.l_matrix.abs().max()).max()),
+                "accept_rate": float(ref_out["accept_rate"]),
+                "seconds_unsharded": t_ref}
+
+    out["cases"]["rwm"] = case("rwm", 200, (True, True, False))
+    if world > 1:
+        out["cases"]["mala_rescue"] = case("mala", SHARD_MALA_STEPS, (True, True, True))
+        out["cases"]["stretch"] = case("stretch", 200, (True, True, False))
+        out["cases"]["chees"] = case("chees", SHARD_CHEES_STEPS, (True, True, True))
+        # the sharded adaptive fit, kernel 1 forced to the unsharded plan
+        fit = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE).shard(mesh)
+        fused_posterior.launches = 0
+        fit._fused_posterior_probed("kernel")          # its probe: one launch at W/2
+        fit_post = prepare_fused_terms(fit.terms, fit.spec, torch.float32)
+        fit._runner_cache["_fused"] = lambda x: fused_posterior(
+            x, fit_post, force=force if x.shape[0] == wl else None)
+        calls = comm.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit.adaptive_steps(SHARD_FIT_STEPS, temperature=10.0, auto=None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lp, best = fit.most_likely_step()
+        out["fit"] = {"steps": SHARD_FIT_STEPS, "seconds": secs, "best_lp": lp,
+                      "x0": best["x0"], "acceptance": fit.acceptance(),
+                      "launches": fused_posterior.launches,
+                      "collectives": comm.calls - calls,
+                      "history": list(fit._history()[0].shape),
+                      "x0_truth": FLAGSHIP["x0"]}
+    print(json.dumps(out), flush=True)
+    torch.distributed.barrier()
+    # Leave without the group's teardown: a rank that tears down after its
+    # peer (rank 0 hosts the store) has exited can abort in it.
+    os._exit(0)
+
+
+def phase_shard(ceilings, counters, procs, ptxas):
+    """Collect the shard workers (see the constants above), gate them, and
+    time kernel 1 at a rank's W/2 with the forced plan against its plain
+    version: the kernels line's ``fused_posterior_shard`` row."""
+    import torch
+    from lisp_mcmc_torch.device import kernel_time_ms
+    from lisp_mcmc_torch.ops.loglik_kernel import (fused_bytes, fused_kernel_entry,
+                                                   fused_plan, fused_posterior,
+                                                   fused_posterior_plain,
+                                                   posterior_census, prepare_fused_terms)
+    from lisp_mcmc_torch.roofline import FLAGSHIP
+
+    t_phase = time.perf_counter()
+    ranks = [_collect(procs.pop(f"rank{r}"), f"shard_rank{r}") for r in range(SHARD_RANKS)]
+    nccl = _collect(procs.pop("nccl"), "shard_nccl")
+    out = {"phase": "shard", "ranks": ranks, "nccl": nccl,
+           "seconds_waited": time.perf_counter() - t_phase}
+
+    # kernel 1 at a rank's W/2 with the unsharded plan, against its plain version
+    wl = W_FLAGSHIP // SHARD_RANKS
+    w = _flagship_walker(W_FLAGSHIP, torch.float32, DEVICE, params=FLAGSHIP, jitter=0.02)
+    post = prepare_fused_terms(w.terms, w.spec, torch.float32)
+    plan = fused_plan(post, W_FLAGSHIP)
+    force = (plan["threads"], plan["R"], plan["S"])
+    x = w.state.position[:wl]
+    for c in counters:
+        c.launches = 0
+    got = fused_posterior(x, post, force=force)
+    ref = fused_posterior_plain(x, post)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    rel = float((err / ref.abs().clamp_min(1.0)).max())
+    fplan = fused_plan(post, wl, force)
+    entry = fused_kernel_entry(ptxas["fused_posterior"], torch.float32, fplan)
+    row = {"name": "fused_posterior_shard", "route": "cuda",
+           "source": "lisp_mcmc_torch/csrc/fused_posterior.cu",
+           "replaces": "lisp_mcmc_tpu/ops/loglik_pallas.py:117",
+           "launches": ranks[0]["fit"]["launches"], "max_abs_err": float(err.max()),
+           "ms": cuda_time_ms(lambda: fused_posterior(x, post, force=force), 200),
+           "kernel_ms": kernel_time_ms(lambda: fused_posterior(x, post, force=force), 200,
+                                       "fused_posterior"),
+           "plan": {k: fplan[k] for k in ("threads", "R", "S", "blocks", "blocks_per_sm",
+                                          "waves", "twin_class")},
+           "plain_ms": cuda_time_ms(lambda: fused_posterior_plain(x, post), 5),
+           **_bounds(posterior_census(post), 1, fused_bytes(post, wl), ceilings, walkers=wl),
+           "library_ms": None}
+    out["kernel1_forced"] = {"max_rel_err": rel, "registers": entry and entry["registers"],
+                             "spills": entry and entry["spill_stores"], **row}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    check(rel <= RTOL["float32"], f"shard: kernel 1 at W/2 with the forced plan, relative "
+          f"error {rel} > {RTOL['float32']}")
+    check(entry is not None and entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+          f"shard: the forced plan's kernel spills or has no ptxas entry ({entry})")
+    lp_gen = _lp_generating()
+    for r in ranks + [nccl]:
+        tag = f"shard rank {r['rank']} of {r['world']} ({r['backend']})"
+        rw = r["cases"]["rwm"]
+        check(rw["collectives"] == 1, f"{tag}: {rw['collectives']} all-reduces a rwm chunk")
+        if r["rank"] == 0:
+            check(rw["positions_equal"] and rw["logprobs_equal"],
+                  f"{tag}: the sharded rwm chunk differs from the unsharded one ({rw})")
+            check(rw["moment_err"] <= SHARD_MOMENT_RTOL,
+                  f"{tag}: moments {rw['moment_err']} > {SHARD_MOMENT_RTOL}")
+            for name, c in r["cases"].items():
+                check(c["position_rel_err"] <= SHARD_RTOL,
+                      f"{tag}: {name} positions {c['position_rel_err']} from the unsharded "
+                      f"chunk's (> {SHARD_RTOL})")
+        if r["world"] > 1:
+            f = r["fit"]
+            check(f["launches"] == f["steps"] + 1,
+                  f"{tag}: kernel 1 launched {f['launches']} times, want {f['steps']} + 1")
+            check(f["best_lp"] >= lp_gen - 5.0,
+                  f"{tag}: best lp {f['best_lp']} < lp(generating) {lp_gen} - 5")
+            check(abs(f["x0"] - f["x0_truth"]) <= 0.01 * f["x0_truth"],
+                  f"{tag}: x0 {f['x0']} not within 1% of {f['x0_truth']}")
+            check(0.2 <= f["acceptance"] <= 0.4,
+                  f"{tag}: final acceptance {f['acceptance']} outside 0.2-0.4")
+    check(ranks[0]["fit"]["best_lp"] == ranks[1]["fit"]["best_lp"],
+          "shard: the ranks disagree on the global best point")
+    return row
+
+
 def main():
     import torch
 
@@ -3879,6 +4384,7 @@ def main():
     global_walker, global_lp_gen = phase_global(ceilings, counters, ptxas)
     phase_chunk_wide(ceilings, ptxas)
     main_launches, journey_walker = phase_journey(counters)
+    phase_plotting(journey_walker)
     chunk_launches = phase_chunk_journey(counters)
     phase_nv(ceilings, counters, ptxas)
     phase_nv_chunk(ceilings, counters, ptxas)
@@ -3897,8 +4403,10 @@ def main():
     hier_path = os.path.join(ROOT, "chiprun_out", "hier_refit_fit.npz")
     os.makedirs(os.path.dirname(hier_path), exist_ok=True)
     hier_procs = start_hier_workers(hier_path)
+    shard_procs = start_shard_workers()
     try:
         phase_batched_nv(counters)
+        shard_row = phase_shard(ceilings, counters, shard_procs, ptxas)
         evidence_rows = phase_evidence(ceilings, counters, ptxas)
         phase_criticism(counters, journey_walker, prior_walker)
         del journey_walker, prior_walker
@@ -3908,7 +4416,7 @@ def main():
         phase_hier_sbc(counters, hier_fit, hier_procs)
         del hier_fit
     finally:
-        _stop(hier_procs.values())
+        _stop(list(hier_procs.values()) + list(shard_procs.values()))
     kernels[0]["launches"] = main_launches["fused_posterior"]
     kernels[1]["launches"] = chunk_launches["chunk_rwm"]
     kernels.append(probe_row)
@@ -3935,6 +4443,9 @@ def main():
     kernels.append(vi_row)
     # kernel 1 over compare_pooling's complete-pooling fit: 8 terms, d = 6
     kernels.append(pool_row)
+    # kernel 1 on a shard rank's W/2 walkers with the unsharded plan, its
+    # launches the rank's sharded journey
+    kernels.append(shard_row)
     summary = {"kernels": kernels}
     OUT["kernels"] = kernels
     OUT["seconds"] = time.perf_counter() - t_start

@@ -15,7 +15,9 @@ profile likelihood), simulation-based calibration (``sbc_check``,
 ``sbc_check_hierarchical``), variational inference (``advi``, RealNVP
 ``flow_advi``, NeuTra, flow checkpoints) and checkpoints of every fit
 kind (``walker_save``/``walker_load`` and the batched, hierarchical and
-walker-set forms, in the JAX package's file format) are ported too.
+walker-set forms, in the JAX package's file format), the plots
+(``plotting``, the ``Walker`` plot verbs) and chain-axis sharding over
+processes (``parallel``, ``Walker.shard``) are ported too.
 Importing the package needs neither a GPU nor the CUDA toolkit; the
 entry points run on the GPU unless ``device="cpu"`` is passed.
 
@@ -75,7 +77,7 @@ from .variational import (FlowVIResult, NeutraResult, VIResult, advi, advi_per_d
 from .walker_set import WalkerSet
 
 __all__ = [
-    "control", "diagnostics", "models", "nv", "stats", "utils",
+    "control", "diagnostics", "models", "nv", "stats", "utils", "plotting", "parallel",
     "clear_stop", "estop", "request_stop", "stop_requested",
     "Dataset", "clean_data", "clean_data_error", "create_walker_data",
     "resolve_device", "ess_from_history", "rhat_from_history", "convergence",
@@ -113,3 +115,13 @@ __all__ = [
     "load_flow", "walker_save", "walker_load", "walker_set_save", "walker_set_load",
     "batched_save", "batched_load", "hierarchical_save", "hierarchical_load",
 ]
+
+
+def __getattr__(name):
+    # ``plotting`` (matplotlib) and ``parallel`` (torch.distributed) load
+    # on first use, so importing the package stays light.
+    if name in ("plotting", "parallel"):
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -197,9 +197,12 @@ class BatchedFit(Walker):
                 return per_batch(blocks, data["ds"])
 
         def batched_log_post(positions, data):
-            return blocks_lp(positions.reshape(S, B, -1), data).reshape(positions.shape[0])
+            # Any whole number of blocks: a sharded rank holds its own.
+            return blocks_lp(positions.reshape(-1, B, positions.shape[-1]),
+                             data).reshape(positions.shape[0])
 
         self._blocks_lp = blocks_lp
+        self._whole_data = data
 
         group_ids = np.repeat(np.arange(S), B)
         init = np.stack([np.asarray([float(g[k]) for k in spec.keys], np.float64)
@@ -224,6 +227,7 @@ class BatchedFit(Walker):
         self._datasets = list(dsets)
         self.terms[0].dataset = self._datasets[0]
         self._custom_data = self._posterior_stack(self._datasets)
+        self._whole_data = self._custom_data
         self._log_post = self._build_log_posterior()
         self._rows_post = self._build_rows_posterior()
         self._runner_cache.clear()
@@ -262,23 +266,41 @@ class BatchedFit(Walker):
                                  f"{n} points")
         return out
 
+    def _localize(self, lo: int, hi: int):
+        """A rank's share of the batch: whole dataset blocks ``lo // B ..
+        hi // B``, their stacked data, and the aux dataset index relative
+        to them (the batched posterior takes any whole number of blocks)."""
+        B = self.walkers_per_dataset
+        if lo % B or hi % B:
+            raise ValueError(f"shard: each rank must hold whole dataset blocks of {B} "
+                             f"walkers; walkers {lo}..{hi} split one")
+        s0 = lo // B
+        self._custom_data = self._posterior_stack(self._datasets[s0:hi // B])
+        self.aux = self.aux[lo:hi] - s0
+        self._log_post = self._build_log_posterior()
+        self._rows_post = self._build_rows_posterior()
+
     # ------------------------------------------------------------- queries
 
-    def _best_walker_per_dataset(self) -> np.ndarray:
+    def _best_walker_per_dataset(self, best_lp=None) -> np.ndarray:
         """(S,) walker index of each dataset block's best step."""
-        best_lp = _host(self.state.best_logprob)
+        if best_lp is None:
+            (best_lp,) = self._gather(self.state.best_logprob)
         B = self.walkers_per_dataset
-        return np.arange(self.n_datasets) * B + best_lp.reshape(self.n_datasets, B).argmax(1)
+        return (np.arange(self.n_datasets) * B
+                + _host(best_lp).reshape(self.n_datasets, B).argmax(1))
 
     def best_params_per_dataset(self) -> list[dict]:
         """Each dataset's most-likely params: the argmax within its block."""
-        best_pos = _host(self.state.best_position)
+        best_pos, best_lp = self._gather(self.state.best_position, self.state.best_logprob)
+        best_pos = _host(best_pos)
         return [self.spec.make(best_pos[w].tolist())
-                for w in self._best_walker_per_dataset()]
+                for w in self._best_walker_per_dataset(best_lp)]
 
     def best_logprob_per_dataset(self) -> list[float]:
-        best_lp = _host(self.state.best_logprob)
-        return [float(best_lp[w]) for w in self._best_walker_per_dataset()]
+        (best_lp,) = self._gather(self.state.best_logprob)
+        host = _host(best_lp)
+        return [float(host[w]) for w in self._best_walker_per_dataset(best_lp)]
 
     def expressions_per_dataset(self, expr: str) -> list[float]:
         """A derived-quantity expression at each dataset's best fit (the
@@ -291,11 +313,12 @@ class BatchedFit(Walker):
         """Restart each dataset's walkers at that dataset's best step (the
         base verb's global argmax would put every block at one dataset's
         optimum; JAX batched.py:342-364)."""
-        idx = torch.as_tensor(self._best_walker_per_dataset(), device=self.device)
-        idx = idx.repeat_interleave(self.walkers_per_dataset)
+        best_pos, best_lp = self._gather(self.state.best_position, self.state.best_logprob)
+        idx = torch.as_tensor(self._best_walker_per_dataset(best_lp), device=self.device)
+        lo, wl = self._rank_rows()
+        idx = idx.repeat_interleave(self.walkers_per_dataset)[lo:lo + wl]
         self.state = dataclasses.replace(
-            self.state, position=self.state.best_position[idx].clone(),
-            logprob=self.state.best_logprob[idx].clone())
+            self.state, position=best_pos[idx].clone(), logprob=best_lp[idx].clone())
         self.reset()
 
     def dataset_view(self, s: int) -> _DatasetView:
@@ -308,7 +331,7 @@ class BatchedFit(Walker):
         """``(S, m, d) -> (S, m)``: each dataset's posterior at its own m
         points, for any m (``nested_per_dataset``'s refills), on the
         batch's plain posterior."""
-        return self._blocks_lp(positions, self._posterior_data())
+        return self._blocks_lp(positions, self._whole_data)
 
     # ---------------------------------------------- per-dataset criticism
 
@@ -403,7 +426,7 @@ class BatchedFit(Walker):
         from .evidence import _laplace_from_hessian
         from .priors import resolve_prior_spec
 
-        data = self._posterior_data()
+        data = self._whole_data
         best = self.best_params_per_dataset()
         thetas = torch.as_tensor(np.stack([[p[k] for k in self.spec.keys] for p in best]),
                                  dtype=self.dtype, device=self.device)

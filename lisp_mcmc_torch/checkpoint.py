@@ -44,6 +44,7 @@ from .data import Dataset
 from .device import resolve_device
 from .fit import _host
 from .kernel import FitConfig
+from .parallel.mesh import refuse_multi_process
 from .likelihoods import (log_likelihood_normal, log_likelihood_normal_cutoff,
                           log_likelihood_poisson)
 from .priors import log_prior_flat
@@ -272,6 +273,7 @@ def walker_save(walker, path: str, take: int | None = None) -> None:
     40).  A batched or hierarchical fit is refused with the verb it takes;
     a custom-posterior, aux or grouped walker saves through the custom
     format, whose callables :func:`walker_load` asks back."""
+    refuse_multi_process(walker, "walker_save")
     if hasattr(walker, "walkers_per_dataset"):
         raise ValueError(
             "walker_save: this is a BatchedFit/BatchedNVFit — use "
@@ -455,6 +457,7 @@ def batched_save(fit, path: str, take: int | None = None) -> None:
     """Save a :class:`~lisp_mcmc_torch.BatchedFit` (JAX checkpoint.py:
     415-445): its registry model's name, the stacked datasets, the block
     layout and every chain array."""
+    refuse_multi_process(fit, "batched_save")
     if fit._custom_data is None or not hasattr(fit, "walkers_per_dataset"):
         raise ValueError("batched_save: not a BatchedFit; use walker_save")
     arrays = _stack_batch_arrays(fit, take)

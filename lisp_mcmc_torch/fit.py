@@ -226,7 +226,12 @@ class Walker:
     variational verbs ``advi``, ``flow_advi``.  Mutation
     verbs (``walker-modify``, 547-580): ``reset``, ``reset_to_most_likely``,
     ``burn_steps``, ``keep_steps``, ``add_steps``, ``delete``, and
-    ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.
+    ``force_step``, ``swap_data``, ``sample_region``, ``optimize``.  The
+    plot verbs (``plotting.py``): ``plot_data_and_fit``, ``plot_residuals``,
+    ``caterpillar_plots``, ``likelihood_plot``, ``autocorrelation_plot``,
+    ``corner_plot``, ``all_corner_plots``, ``param_histogram``,
+    ``ppc_plot``; ``shard`` spreads the walkers over processes
+    (``parallel/mesh.py``).
 
     ``group_ids`` (W,) and ``n_groups`` split the walkers into adaptation
     groups, each with its own L, moments and acceptance window.
@@ -265,6 +270,7 @@ class Walker:
         self.config = config or FitConfig()
         self.dtype = dtype or default_dtype()
         self.n_walkers = int(n_walkers)
+        self.mesh = None                      # set by shard()
         self._runner_cache: dict[Any, Any] = {}
         self.group_ids = None if group_ids is None else np.asarray(group_ids, np.int64)
         self.n_groups = int(n_groups)
@@ -469,7 +475,8 @@ class Walker:
             chunk = None
             if self._custom:
                 self._refuse_custom(cfg.posterior_impl)
-            elif cfg.posterior_impl == "chunk_kernel" and not with_history:
+            elif (cfg.posterior_impl == "chunk_kernel" and not with_history
+                  and self.mesh is None):
                 # Non-history chunks run as one kernel launch each; history
                 # chunks keep the per-step path.  The probe gates it too.
                 reason = chunk_coverage(self.terms, self.spec, cfg,
@@ -484,9 +491,75 @@ class Walker:
                 self._batched_posterior(), self.spec.ndim, cfg,
                 chunk_kernel=chunk, group_ids=self.group_ids, n_groups=self.n_groups,
                 eval_plain=self._log_post, whole_batch=self._whole_batch,
-                eval_rows=self._rows_post)
+                eval_rows=self._rows_post, mesh=self.mesh)
             self._runner_cache[cache_key] = run_hist if with_history else run
         return self._runner_cache[cache_key]
+
+    # ---------------------------------------------------------------- sharding
+
+    def shard(self, mesh=None):
+        """Spread the walker ensemble over the ranks of a mesh (chain-axis
+        data parallelism; JAX ``Walker.shard``, fit.py:466-478).
+
+        ``mesh`` defaults to ``parallel.make_mesh()``, the whole world.
+        Every rank builds the same walker (same seed) and keeps its
+        contiguous slice of the walkers; the chunk runners' pooled
+        reductions become explicit collectives (``parallel/mesh.py``).
+        Kernel 1 evaluates the rank's walkers; the chunk kernel stays off
+        a sharded walker.  The best-point verbs answer for the whole
+        ensemble, and the history keeps the whole ensemble's retained
+        walkers on every rank.  Returns self.
+        """
+        from .parallel import make_mesh, shard_state
+        from .parallel.mesh import chain_comm
+
+        if self.mesh is not None:
+            raise ValueError("shard: the walker is sharded already")
+        mesh = mesh if mesh is not None else make_mesh()
+        comm = chain_comm(mesh)
+        state = shard_state(self.state, mesh)
+        wl = state.position.shape[0]
+        self._localize(comm.rank * wl, (comm.rank + 1) * wl)
+        self.mesh, self.state = mesh, state
+        self._runner_cache.clear()
+        return self
+
+    def _localize(self, lo: int, hi: int):
+        """Narrow the posterior to walkers ``lo .. hi`` (this rank's): the
+        per-walker aux rows.  A batched custom posterior that needs the
+        whole ensemble cannot be split (``BatchedFit`` narrows its own)."""
+        if self._custom_batched is not None and self._whole_batch:
+            raise ValueError(
+                "shard: this walker's batched_log_posterior needs the whole ensemble, "
+                "which a rank does not hold (ROADMAP Queue 3)")
+        if self.aux is not None:
+            self.aux = _aux_take(self.aux, slice(lo, hi))
+            self._log_post = self._build_log_posterior()
+            self._rows_post = self._build_rows_posterior()
+
+    def _comm(self):
+        from .parallel.mesh import chain_comm
+
+        return chain_comm(self.mesh)
+
+    def _rank_rows(self) -> tuple[int, int]:
+        """This rank's walker range ``(lo, wl)`` (``(0, W)`` unsharded)."""
+        wl = int(self.state.position.shape[0])
+        return (0, wl) if self.mesh is None else (self._comm().rank * wl, wl)
+
+    def _gather(self, *tensors):
+        """Whole-ensemble copies of walker-axis tensors, (W_rank, ...) each,
+        on every rank (one all-reduce); the tensors themselves unsharded."""
+        if self.mesh is None:
+            return tensors
+        lo, wl = self._rank_rows()
+        flat = [t.reshape(wl, -1).to(self.dtype) for t in tensors]
+        _, rows = self._comm().exchange(None, torch.cat(flat, dim=1), lo, self.n_walkers)
+        out, i = [], 0
+        for t, f in zip(tensors, flat):
+            out.append(rows[:, i:i + f.shape[1]].reshape((self.n_walkers,) + t.shape[1:]))
+            i += f.shape[1]
+        return tuple(out)
 
     # ----------------------------------------------------------- adaptive loop
 
@@ -546,7 +619,7 @@ class Walker:
             # Ensemble moves cannot create spread they lack: a coordinate
             # every walker of a group agrees on stays frozen, at
             # acceptance 1 (walker_jitter=0, reset_to_most_likely).
-            pos = self.state.position
+            (pos,) = self._gather(self.state.position)
             if self.group_ids is not None and self.n_groups:
                 pos = pos.reshape(self.n_groups, -1, self.ndim)
             else:
@@ -641,7 +714,9 @@ class Walker:
             return out
         pos, lp = out["positions"], out["logprobs"]
         idx = self._history_walker_idx()
-        if idx is not None:
+        if self.mesh is not None:
+            pos, lp = self._gather_history(pos, lp, idx)
+        elif idx is not None:
             pos = pos.index_select(1, idx)
             lp = lp.index_select(1, idx)
         out = dict(out)
@@ -655,6 +730,21 @@ class Walker:
             pos, lp = host_pos, host_lp
         out["positions"], out["logprobs"] = pos, lp
         return out
+
+    def _gather_history(self, pos, lp, idx):
+        """A sharded chunk's retained rows of the whole ensemble on every
+        rank: each rank writes its own retained walkers into a zero
+        (T, K, d + 1) buffer and one all-reduce sums them."""
+        lo, wl = self._rank_rows()
+        if idx is None:
+            idx = torch.arange(self.n_walkers, device=pos.device)
+        mine = (idx >= lo) & (idx < lo + wl)
+        T, d = pos.shape[0], pos.shape[2]
+        buf = torch.zeros((T, idx.shape[0], d + 1), dtype=pos.dtype, device=pos.device)
+        cols = idx[mine] - lo
+        buf[:, mine] = torch.cat([pos[:, cols], lp[:, cols, None]], dim=2)
+        buf = self._comm().all_reduce_sum(buf)
+        return buf[..., :d], buf[..., d]
 
     def _record_chunk(self, out):
         self._accept_log.append(out["accept_rate"])
@@ -850,7 +940,8 @@ class Walker:
 
     def _optimize_round(self, n_steps: int, learning_rate: float):
         st = self.state
-        s = torch.as_tensor(_nonzero_scales(np.median(np.abs(_host(st.position)), axis=0)),
+        (whole,) = self._gather(st.position)
+        s = torch.as_tensor(_nonzero_scales(np.median(np.abs(_host(whole)), axis=0)),
                             dtype=self.dtype, device=self.device)
         key = ("optimize", int(n_steps))
         fn = self._runner_cache.get(key)
@@ -893,6 +984,9 @@ class Walker:
         """
         if self.aux is not None or self.group_ids is not None:
             raise ValueError("tempering is unavailable for batched/grouped fits")
+        from .parallel.mesh import refuse_multi_process
+
+        refuse_multi_process(self, "tempered_steps")
         K = int(rungs)
         if K < 2 or self.n_walkers % K:
             raise ValueError(f"rungs must be >= 2 and divide n_walkers={self.n_walkers}")
@@ -1095,8 +1189,8 @@ class Walker:
     def _history(self, take: int | None = None):
         """Stacked host history: (T, W', d) positions, (T, W') logprobs."""
         if not self._hist_positions:
-            pos = _host(self.state.position)[None]
-            lp = _host(self.state.logprob)[None]
+            pos, lp = self._gather(self.state.position, self.state.logprob)
+            pos, lp = _host(pos)[None], _host(lp)[None]
         else:
             pos = np.concatenate(self._hist_positions, axis=0)
             lp = np.concatenate(self._hist_logprobs, axis=0)
@@ -1166,13 +1260,14 @@ class Walker:
 
     def best_params_vector(self):
         """Flat (d,) vector of the global best step's parameters."""
-        return self.state.best_position[int(torch.argmax(self.state.best_logprob))]
+        best_pos, best_lp = self._gather(self.state.best_position, self.state.best_logprob)
+        return best_pos[int(torch.argmax(best_lp))]
 
     def most_likely_step(self):
         """Global best step over all walkers (``:most-likely-step``, 503)."""
-        w = int(torch.argmax(self.state.best_logprob))
-        return (float(self.state.best_logprob[w]),
-                self.spec.make(_host(self.state.best_position[w]).tolist()))
+        best_pos, best_lp = self._gather(self.state.best_position, self.state.best_logprob)
+        w = int(torch.argmax(best_lp))
+        return (float(best_lp[w]), self.spec.make(_host(best_pos[w]).tolist()))
 
     def most_likely_params(self) -> dict[str, float]:
         """``:most-likely-params`` (511-515)."""
@@ -1268,12 +1363,12 @@ class Walker:
 
     def reset_to_most_likely(self):
         """Restart every walker at the global best (``:reset-to-most-likely``, 574-578)."""
-        w = int(torch.argmax(self.state.best_logprob))
-        W = self.n_walkers
+        best_pos, best_lp = self._gather(self.state.best_position, self.state.best_logprob)
+        w = int(torch.argmax(best_lp))
+        W = self.state.position.shape[0]
         self.state = dataclasses.replace(
-            self.state,
-            position=self.state.best_position[w].expand(W, self.ndim).clone(),
-            logprob=self.state.best_logprob[w].expand(W).clone())
+            self.state, position=best_pos[w].expand(W, self.ndim).clone(),
+            logprob=best_lp[w].expand(W).clone())
         self.reset()
 
     def add_steps(self, positions, logprobs):
@@ -1289,6 +1384,9 @@ class Walker:
         self._hist_positions.append(positions)
         self._hist_logprobs.append(logprobs)
         st = self.state
+        lo, wl = self._rank_rows()
+        if self.mesh is not None:
+            positions, logprobs = positions[:, lo:lo + wl], logprobs[:, lo:lo + wl]
         col_arg = logprobs.argmax(axis=0)
         kw = dict(dtype=self.dtype, device=self.device)
         col_best = torch.as_tensor(logprobs.max(axis=0), **kw)
@@ -1303,6 +1401,55 @@ class Walker:
         self.reset()
         self.terms = []
         self._runner_cache.clear()
+
+    # ------------------------------------------------------------- plot verbs
+    # Thin delegates to the plotting layer so the reference's walker-*
+    # plot verbs read the same here: w.plot_data_and_fit(), w.corner_plot().
+
+    def plot_data_and_fit(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_data_and_fit(self, *args, **kwargs)
+
+    def plot_residuals(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.plot_residuals(self, *args, **kwargs)
+
+    def caterpillar_plots(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.caterpillar_plots(self, *args, **kwargs)
+
+    def likelihood_plot(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.likelihood_plot(self, *args, **kwargs)
+
+    def autocorrelation_plot(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.autocorrelation_plot(self, *args, **kwargs)
+
+    def corner_plot(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.corner_plot(self, *args, **kwargs)
+
+    def all_corner_plots(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.all_corner_plots(self, *args, **kwargs)
+
+    def param_histogram(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.param_histogram(self, *args, **kwargs)
+
+    def ppc_plot(self, *args, **kwargs):
+        from . import plotting
+
+        return plotting.ppc_plot(self, *args, **kwargs)
 
     def burn_steps(self, burn_number: int):
         """Drop the oldest ``burn_number`` steps (``:burn-walks``, 566-567)."""
@@ -1391,9 +1538,13 @@ def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
         th = theta_of_u(u)
         return base(th) + shift(u, th)
 
+    if walker.mesh is not None and (walker.aux is not None or walker._custom):
+        raise ValueError("unit_cube_view: a sharded walker with aux data or a custom "
+                         "posterior has no whole-ensemble posterior on one rank "
+                         "(ROADMAP Queue 3)")
     eps = 1e-12 if walker.dtype == torch.float64 else 1e-6
-    u0 = np.clip(_host(spec.inverse(walker.state.position, keys)).astype(np.float64),
-                 eps, 1.0 - eps)
+    (whole,) = walker._gather(walker.state.position)
+    u0 = np.clip(_host(spec.inverse(whole, keys)).astype(np.float64), eps, 1.0 - eps)
     uw = Walker([], walker.spec, u0, seed=seed,
                 config=dataclasses.replace(walker.config, posterior_impl="plain"),
                 dtype=walker.dtype, device=walker.device, group_ids=walker.group_ids,
@@ -1407,6 +1558,8 @@ def unit_cube_view(walker, prior_spec, seed: int = 0) -> Walker:
             th = theta_of_u(u)
             return base_rows(th, rows) + shift(u, th)
         uw._rows_post = rows_u
+    if walker.mesh is not None:
+        uw.shard(walker.mesh)
     uw._unit_cube_spec = spec
     uw._theta_of_u = theta_of_u
     return uw

@@ -37,11 +37,18 @@ every data-dependent choice is a ``where``; only the slice sampler's
 loops read "every walker done" back, every :data:`SLICE_POLL` iterations,
 and a chees step reads its longest trajectory's leapfrog count (one
 device sync a step).
+
+A runner built with a ``mesh`` steps one rank's slice of a walker
+ensemble sharded over processes (``parallel/mesh.py``, ``Walker.shard``):
+its pooled reductions are explicit all-reduces at named sites, where the
+JAX package's GSPMD inserts them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -328,7 +335,7 @@ def _contiguous_block(group_ids, n_groups: int) -> int | None:
 def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
                        chunk_kernel=None, group_ids=None, n_groups: int = 1,
                        eval_plain: Callable | None = None, whole_batch: bool = False,
-                       eval_rows: Callable | None = None):
+                       eval_rows: Callable | None = None, mesh=None):
     """The chunk runners for a batched posterior ``eval_lp((W, d)) -> (W,)``.
 
     Returns ``(run, run_with_history)``; each maps ``(state, adapt_enabled,
@@ -381,6 +388,19 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
       "u" (W,)}`` when a group's walker count is odd;
     - the chunk kernel: ``{"seed": (1,) int32}``, the chunk's key (else
       ``noise`` runs the per-step path).
+
+    ``mesh``: a ``DeviceMesh`` (or process group, or
+    ``parallel.ChainComm``) whose ranks each hold a contiguous slice of
+    the walkers (``parallel.shard_state``): the walker-axis fields of the
+    state are this rank's rows, the group-axis fields whole.  A rank
+    steps its own walkers, and the pooled reductions go through explicit
+    collectives (``parallel/mesh.py``'s docstring lists them, and
+    ``out["collectives"]`` counts a chunk's); every rank draws the whole
+    ensemble's noise (and takes ``noise`` laid out for the whole
+    ensemble) and keeps its rows, so the chunk draws what the unsharded
+    one does.  Groups must be contiguous blocks held whole by one rank.
+    With more than one rank, tempering refuses; the chunk kernel always.
+    With no mesh the code is the single-process one.
     """
     _check_scope(config)
     chunk = config.chunk_size
@@ -433,9 +453,104 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
     eval_vg = make_eval_vg(eval_plain if eval_plain is not None else eval_lp)
     cache: dict[Any, torch.Tensor] = {}
 
+    # ---- sharding over a mesh (parallel/mesh.py) ----
+    comm = None
+    if mesh is not None:
+        from .parallel.mesh import chain_comm
+
+        comm = chain_comm(mesh)
+        if chunk_kernel is not None:
+            raise ValueError("the chunk kernel runs whole, unsharded ensembles")
+        if tempered and comm.size > 1:
+            raise ValueError(
+                "parallel tempering swaps replicas between rungs held by other "
+                "processes; it refuses a walker sharded over more than one process "
+                "(ROADMAP Queue 3)")
+        if grouped and group_block is None:
+            raise ValueError("a sharded walker needs contiguous equal-size adaptation "
+                             "groups (irregular group_ids cannot be split by rank)")
+        if grouped and (len(gid) % comm.size or (len(gid) // comm.size) % group_block):
+            raise ValueError(
+                f"each of the {comm.size} processes must hold whole adaptation groups: "
+                f"{len(gid)} walkers in groups of {group_block}")
+    # The group layout the helpers below read.  A sharded runner steps in
+    # its rank's frame (its g_loc groups from g0; one group split over
+    # every rank when ungrouped) and adapts, rescues and runs the ensemble
+    # samplers in the whole ensemble's frame (in_frame(frame_whole)).
+    G_all = n_groups
+    frame_whole = (n_groups, group_block, grouped, gid)
+    g_loc, g0 = n_groups, 0
+    if comm is not None and grouped:
+        g_loc = n_groups // comm.size
+        g0 = comm.rank * g_loc
+    frame_rank = (g_loc, group_block if g_loc > 1 else None, g_loc > 1, None)
+    # Ungrouped, the one group spans every rank: its sums are partial.
+    split_group = comm is not None and not grouped
+
+    def set_frame(frame):
+        nonlocal n_groups, group_block, grouped, gid
+        n_groups, group_block, grouped, gid = frame
+
+    @contextlib.contextmanager
+    def in_frame(frame):
+        prev = (n_groups, group_block, grouped, gid)
+        set_frame(frame)
+        try:
+            yield
+        finally:
+            set_frame(prev)
+
+    def own_rows(t):
+        """This rank's walker rows of a whole-ensemble tensor (a draw every
+        rank makes alike); the tensor itself unsharded."""
+        if comm is None:
+            return t
+        wl = t.shape[0] // comm.size
+        return t[comm.rank * wl:(comm.rank + 1) * wl]
+
+    def n_drawn(W):
+        """The walker count of a draw: the whole ensemble's."""
+        return W if comm is None else W * comm.size
+
+    def unpack(flat, parts):
+        """``flat`` cut into tensors shaped as ``parts``."""
+        out, i = [], 0
+        for p in parts:
+            out.append(flat[i:i + p.numel()].reshape(p.shape))
+            i += p.numel()
+        return out
+
+    def pooled_sums(parts):
+        """Sums over the ranks of per-rank partial (G, ...) sums, in rank
+        order (one all-reduce)."""
+        stacked, _ = comm.exchange(torch.cat([p.reshape(-1) for p in parts]))
+        return unpack(stacked.sum(dim=0), parts)
+
     def eval_slots(x, frame, a0, bh):
         """The posterior of proposals ``x`` (G, bh, d) for slots ``a0 ..
-        a0 + bh`` of each group block of ``frame`` (G, B, d): (G * bh,)."""
+        a0 + bh`` of each group block of ``frame`` (G, B, d): (G * bh,).
+        Sharded, ``frame`` is the whole ensemble's: each rank evaluates the
+        slots it holds, in its own frame (its aux rows, its datasets), and
+        one all-reduce of the zero-padded (G, bh) values gives every rank
+        all of them."""
+        if comm is None:
+            return eval_slots_here(x, frame, a0, bh)
+        G, B = frame.shape[:2]
+        wl = G * B // comm.size
+        lo = comm.rank * wl
+        out = torch.zeros((G, bh), dtype=x.dtype, device=x.device)
+        if G > 1:
+            gl, s = wl // B, lo // B
+            out[s:s + gl] = eval_slots_here(x[s:s + gl], frame[s:s + gl], a0,
+                                            bh).reshape(gl, bh)
+        else:
+            j0, j1 = max(lo, a0) - a0, min(lo + wl, a0 + bh) - a0
+            if j1 > j0:
+                out[0, j0:j1] = eval_slots_here(x[:, j0:j1], frame[:, lo:lo + wl],
+                                                a0 + j0 - lo, j1 - j0)
+        return comm.all_reduce_sum(out).reshape(-1)
+
+    def eval_slots_here(x, frame, a0, bh):
         G, B = frame.shape[:2]
         if whole_batch:
             full = frame.clone()
@@ -591,10 +706,10 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         kw = dict(dtype=state.position.dtype, device=state.position.device)
         temp = resolve_temp(force_cold, state)
         if noise is None:
-            z = torch.randn((W, d), generator=generator, **kw)
-            u = torch.rand((W,), generator=generator, **kw)
+            z = own_rows(torch.randn((n_drawn(W), d), generator=generator, **kw))
+            u = own_rows(torch.rand((n_drawn(W),), generator=generator, **kw))
         else:
-            z, u = noise[0][i], noise[1][i]
+            z, u = own_rows(noise[0][i]), own_rows(noise[1][i])
         step_vec = mul_L(state.l_matrix, z)
         proposal = state.position + step_vec
         lp_prop = _finite(eval_lp(proposal))
@@ -799,9 +914,9 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
     def step_draws(noise, i, W, kw, generator):
         """The step's momentum (or proposal normal) and accept uniform."""
         if noise is None:
-            return (torch.randn((W, ndim), generator=generator, **kw),
-                    torch.rand((W,), generator=generator, **kw))
-        return noise[0][i], noise[1][i]
+            return (own_rows(torch.randn((n_drawn(W), ndim), generator=generator, **kw)),
+                    own_rows(torch.rand((n_drawn(W),), generator=generator, **kw)))
+        return own_rows(noise[0][i]), own_rows(noise[1][i])
 
     def one_step_mala(state, g, i, force_cold, generator, noise, evals, adapt_on):
         """Preconditioned MALA (kernel.py:1144-1191): with M = L L^T and the
@@ -901,10 +1016,10 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         off_lo, off_hi = math.log(1.0 / t_init), math.log(budget / t_init)
         offset = torch.clamp(state.chees[:, 0], off_lo, off_hi)       # (G,)
         t_g = t_init * torch.exp(offset)
-        if noise is None:
-            u_g = torch.rand((state.chees.shape[0],), generator=generator, **kw)
-        else:
-            u_g = noise[2][i]
+        # Every rank draws every group's jitter and keeps its groups'.
+        u_all = (torch.rand((G_all,), generator=generator, **kw) if noise is None
+                 else noise[2][i])
+        u_g = u_all[g0:g0 + state.chees.shape[0]]
         n_leap_g = torch.clamp(torch.ceil(u_g * t_g).to(torch.int64), 1, budget)
         n_leap_w = per_walker(n_leap_g, W)
         u_w = per_walker(u_g, W)
@@ -926,16 +1041,23 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         # The ChEES gradient on log t, per group, from every proposed
         # endpoint weighted by its acceptance probability.
         alpha = torch.where(bad, 0.0, torch.exp(torch.clamp_max(log_alpha, 0.0)))
-        count_g = torch.clamp_min(seg_sum(torch.ones((W,), **kw)), 1.0)
-        a_sum = torch.clamp_min(seg_sum(alpha), 1e-12)
-        xbar = seg_sum(state.position) / count_g[:, None]
-        xbar_p = seg_sum(alpha[:, None] * x) / a_sum[:, None]
+        sums = [seg_sum(torch.ones((W,), **kw)), seg_sum(alpha), seg_sum(state.position),
+                seg_sum(alpha[:, None] * x)]
+        if split_group:
+            sums = pooled_sums(sums)
+        count_g = torch.clamp_min(sums[0], 1.0)
+        a_sum = torch.clamp_min(sums[1], 1e-12)
+        xbar = sums[2] / count_g[:, None]
+        xbar_p = sums[3] / a_sum[:, None]
         dx1 = x - per_walker(xbar_p, W)
         dx0 = state.position - per_walker(xbar, W)
         delta = torch.sum(dx1 * dx1, dim=1) - torch.sum(dx0 * dx0, dim=1)
         v1 = mul_L(L, p)                                              # endpoint velocity
         per_w = alpha * delta * torch.sum(dx1 * v1, dim=1) * u_w
-        grad_log_t = (seg_sum(per_w) / a_sum) * t_g
+        per_g = seg_sum(per_w)
+        if split_group:
+            (per_g,) = pooled_sums([per_g])
+        grad_log_t = (per_g / a_sum) * t_g
         grad_log_t = torch.where(torch.isfinite(grad_log_t), grad_log_t, 0.0)
         b1, b2 = 0.9, 0.999
         m = b1 * state.chees[:, 1] + (1.0 - b1) * grad_log_t
@@ -1207,8 +1329,12 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
         z_y = rescue_t_draw((W, ndim), kw, generator, draws)
         prop = mean_w + mul_l(chol, z_y)
         evals[0] += 1
-        lp_prop = _finite(eval_lp(prop))
         G = chol.shape[0]
+        if comm is None:
+            lp_prop = _finite(eval_lp(prop))
+        else:
+            pg = prop.reshape(G, -1, ndim)
+            lp_prop = _finite(eval_slots(pg, pg, 0, pg.shape[1]))
         z_x = whiten(chol, (state.position - mean_w).reshape(G, -1, ndim)).reshape(W, ndim)
         log_alpha = ((lp_prop - state.logprob) * inv_t
                      + rescue_log_q_t(z_x) - rescue_log_q_t(z_y))
@@ -1225,10 +1351,17 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             best_logprob=torch.where(better, logprob, state.best_logprob))
 
     def _finish(state, accept_counts, trace, adapt_enabled, allow_refresh,
-                force_cold, generator, noise, evals):
-        ones = torch.ones_like(accept_counts)
-        group_total = torch.clamp_min(seg_sum(ones) * chunk, 1.0)    # (G,)
-        group_accept = seg_sum(accept_counts) / group_total          # (G,)
+                force_cold, generator, noise, evals, pooled=None):
+        """The chunk's end: adaptation, tempering swaps, the rescue.
+        ``pooled``: the group acceptance and the pooled rate a sharded
+        chunk reduced over the ranks (``accept_counts`` is then unread)."""
+        if pooled is None:
+            ones = torch.ones_like(accept_counts)
+            group_total = torch.clamp_min(seg_sum(ones) * chunk, 1.0)    # (G,)
+            group_accept = seg_sum(accept_counts) / group_total          # (G,)
+            accept_rate = accept_counts.mean() / chunk
+        else:
+            group_accept, accept_rate = pooled
         if adapt_enabled and not ensemble:
             state = adapt(state, group_accept, bool(allow_refresh))
         else:
@@ -1243,7 +1376,7 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             "logprob_max": trace[:, 0],          # (chunk,)
             "logprob_mean": trace[:, 1],
             "logprob_min": trace[:, 2],
-            "accept_rate": accept_counts.mean() / chunk,    # () pooled
+            "accept_rate": accept_rate,                     # () pooled
             "group_accept": group_accept,                   # (G,)
         }
         if tempered:
@@ -1291,6 +1424,23 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
 
     def _run_steps(state, adapt_enabled, allow_refresh, force_cold, generator, noise,
                    history: bool):
+        if comm is None:
+            return _steps(state, adapt_enabled, allow_refresh, force_cold, generator,
+                          noise, history)
+        calls = comm.calls
+        if ensemble:
+            state, out = _run_whole(state, adapt_enabled, allow_refresh, force_cold,
+                                    generator, noise, history)
+        else:
+            state, out = _steps(_localize(state), adapt_enabled, allow_refresh, force_cold,
+                                generator, noise, history, start=state)
+        out["collectives"] = comm.calls - calls
+        return state, out
+
+    def _steps(state, adapt_enabled, allow_refresh, force_cold, generator, noise,
+               history: bool, start=None):
+        """The chunk's steps and its end.  ``start``: a sharded chunk's
+        state as it came (``state`` is then its rank's frame of it)."""
         accept_counts = torch.zeros_like(state.logprob)
         traces, positions, logprobs, evals = [], [], [], [0, 0]
         if gradk:
@@ -1309,12 +1459,120 @@ def build_chunk_runner(eval_lp: Callable, ndim: int, config: FitConfig,
             if history and (i + 1) % thin == 0:
                 positions.append(state.position)
                 logprobs.append(state.logprob)
-        state, out = _finish(state, accept_counts, torch.stack(traces), adapt_enabled,
-                             allow_refresh, force_cold, generator, noise, evals)
+        finish = _finish if start is None else functools.partial(_finish_sharded, start)
+        state, out = finish(state, accept_counts, torch.stack(traces), adapt_enabled,
+                            allow_refresh, force_cold, generator, noise, evals)
         if history:
             out["positions"] = torch.stack(positions)
             out["logprobs"] = torch.stack(logprobs)
         return state, out
+
+    # ---- the sharded chunk (parallel/mesh.py) ----
+
+    # What adapt reads besides the moments: every walker's position and
+    # logprob (the typical set, the ensemble covariance) or best point.
+    adapt_reads_walkers = (gradk or blocked or config.covariance_source == "ensemble"
+                           or config.sampling_optimization == "best-value")
+
+    def _walker_rows(state):
+        return torch.cat([state.position, state.logprob[:, None], state.best_position,
+                          state.best_logprob[:, None]], dim=1)
+
+    def _from_rows(state, rows):
+        d = ndim
+        return dataclasses.replace(
+            state, position=rows[:, :d].contiguous(), logprob=rows[:, d].contiguous(),
+            best_position=rows[:, d + 1:2 * d + 1].contiguous(),
+            best_logprob=rows[:, 2 * d + 1].contiguous())
+
+    def _own(state, lo, wl):
+        """This rank's rows of a whole-ensemble state."""
+        mine = slice(lo, lo + wl)
+        return dataclasses.replace(
+            state, position=state.position[mine], logprob=state.logprob[mine],
+            best_position=state.best_position[mine], best_logprob=state.best_logprob[mine])
+
+    def _localize(state):
+        """A sharded state in its rank's frame: its groups' L and ChEES rows,
+        and moment accumulators that start from the chunk's sums where the
+        rank owns the group (rank 0 for the one split group), else from 0,
+        so the sums over the ranks add each increment once."""
+        rows = slice(g0, g0 + g_loc)
+        carry = not split_group or comm.rank == 0
+
+        def start(t):
+            return t[rows] if carry else torch.zeros_like(t[rows])
+        return dataclasses.replace(
+            state, l_matrix=state.l_matrix[rows], m_sum=start(state.m_sum),
+            m_outer=start(state.m_outer), m_count=start(state.m_count),
+            chees=state.chees[rows])
+
+    def _finish_sharded(start, st, accept_counts, trace, adapt_enabled, allow_refresh,
+                        force_cold, generator, noise, evals):
+        """A sharded rwm or gradient chunk's end, in one all-reduce: the
+        moment sums, the acceptance per group and pooled, the per-step
+        trace (max, mean, min) and, for the gradient samplers, the ChEES
+        rows and every walker's position, logprob and best point (what
+        adapt and the rescue read).  Then ``_finish`` runs on the whole
+        ensemble's frame alike on every rank, and the rank keeps its rows."""
+        wl = st.position.shape[0]
+        W, lo = wl * comm.size, comm.rank * wl
+        dtype, dev = st.position.dtype, st.position.device
+        share = wl / W
+
+        def embed(t):
+            """A rank-frame (g_loc, ...) tensor in the whole (G, ...) frame."""
+            if g_loc == G_all:
+                return t
+            out = torch.zeros((G_all,) + t.shape[1:], dtype=dtype, device=dev)
+            out[g0:g0 + g_loc] = t
+            return out
+
+        parts = [embed(st.m_sum), embed(st.m_outer), embed(st.m_count),
+                 embed(seg_sum(accept_counts)), (accept_counts.mean() * share)[None],
+                 trace[:, 1] * share]
+        if g_loc < G_all:
+            parts.append(embed(st.chees))
+        n_sum = sum(p.numel() for p in parts)
+        vec = torch.cat([p.reshape(-1) for p in parts] + [trace[:, 0], trace[:, 2]])
+        whole = (adapt_enabled and adapt_reads_walkers) or rescue_on or tempered
+        stacked, rows = comm.exchange(vec, _walker_rows(st) if whole else None, lo, W)
+        got = unpack(stacked[:, :n_sum].sum(dim=0), parts)
+        t_max, t_min = stacked[:, n_sum:].reshape(comm.size, 2, -1).unbind(1)
+        t_max, t_min = t_max.amax(dim=0), t_min.amin(dim=0)
+        state = dataclasses.replace(
+            st, l_matrix=start.l_matrix, m_sum=got[0], m_outer=got[1], m_count=got[2],
+            chees=got[6] if g_loc < G_all else st.chees)
+        if whole:
+            state = _from_rows(state, rows)
+        with in_frame(frame_whole):
+            group_total = torch.clamp_min(
+                seg_sum(torch.ones((W,), dtype=dtype, device=dev)) * chunk, 1.0)
+            state, out = _finish(state, None, torch.stack([t_max, got[5], t_min], dim=1),
+                                 adapt_enabled, allow_refresh, force_cold, generator,
+                                 noise, evals, pooled=(got[3] / group_total, got[4][0] / chunk))
+        return (_own(state, lo, wl) if whole else state), out
+
+    def _run_whole(state, adapt_enabled, allow_refresh, force_cold, generator, noise,
+                   history):
+        """A sharded ensemble-sampler chunk (stretch, demc, slice): one
+        all-reduce gathers the walkers, every rank runs the chunk on the
+        whole ensemble alike (the red-black halves span the ranks), each
+        posterior evaluation split by the ranks that hold its slots
+        (``eval_slots``), and the rank keeps its rows."""
+        wl = state.position.shape[0]
+        W, lo = wl * comm.size, comm.rank * wl
+        _, rows = comm.exchange(None, _walker_rows(state), lo, W)
+        with in_frame(frame_whole):
+            state, out = _steps(_from_rows(state, rows), adapt_enabled, allow_refresh,
+                                force_cold, generator, noise, history)
+        if history:
+            out["positions"] = out["positions"][:, lo:lo + wl]
+            out["logprobs"] = out["logprobs"][:, lo:lo + wl]
+        return _own(state, lo, wl), out
+
+    if comm is not None:
+        set_frame(frame_rank)
 
     def run(state: WalkerState, adapt_enabled=True, allow_refresh=True,
             force_cold=False, *, generator=None, noise=None):

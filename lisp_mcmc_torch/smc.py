@@ -28,6 +28,7 @@ import torch
 
 from . import control
 from .kernel import _neg_floor
+from .parallel.mesh import refuse_multi_process
 
 __all__ = ["SMCResult", "smc_sample", "seed_prior_box"]
 
@@ -50,6 +51,7 @@ def seed_prior_box(walker, bounds):
     are the walker generator's (the JAX package's take a ``seed``).
     Returns ``(lows, highs)``.
     """
+    refuse_multi_process(walker, "seed_prior_box")
     keys = list(walker.spec.keys)
     missing = [k for k in keys if k not in bounds]
     if missing:
@@ -129,6 +131,7 @@ def smc_sample(walker, bounds=None, n_move: int = 200, target_ress: float = 0.5,
     ladder is no evidence).  Raises if beta = 1 is not reached in
     ``max_stages``.
     """
+    refuse_multi_process(walker, "smc_sample")
     if not 0.0 < target_ress < 1.0:
         raise ValueError(f"target_ress must be in (0, 1), got {target_ress}")
     from .priors import resolve_prior_spec

@@ -44,6 +44,8 @@ import math
 import numpy as np
 import torch
 
+from .parallel.mesh import refuse_multi_process
+
 __all__ = ["VIResult", "FlowVIResult", "NeutraResult", "advi",
            "flow_advi", "advi_per_dataset", "flow_advi_per_dataset",
            "load_flow"]
@@ -402,6 +404,7 @@ def _resolved_spec(fit, prior, bounds, caller: str):
 
 
 def _walker_z_space(walker, prior, bounds, caller: str, scales=None) -> _ZSpace:
+    refuse_multi_process(walker, caller)
     spec = _resolved_spec(walker, prior, bounds, caller)
     pos = _host(walker.state.position).astype(np.float64)
     return _z_space(list(walker.spec.keys), spec, pos, walker.dtype, walker.device,
@@ -411,6 +414,7 @@ def _walker_z_space(walker, prior, bounds, caller: str, scales=None) -> _ZSpace:
 def _fit_z_space(fit, prior, bounds, caller: str) -> _ZSpace:
     if getattr(fit, "n_datasets", None) is None:
         raise ValueError(f"{caller} needs a BatchedFit")
+    refuse_multi_process(fit, caller)
     spec = _resolved_spec(fit, prior, bounds, caller)
     S, d = int(fit.n_datasets), fit.spec.ndim
     pos = _host(fit.state.position).astype(np.float64).reshape(S, -1, d)
@@ -490,6 +494,7 @@ class VIResult:
     def seed_walker(self, walker, seed: int = 0):
         """Re-draw ``walker``'s ensemble from q: positions, logprobs and
         best points replaced, history dropped, L and moments kept."""
+        refuse_multi_process(walker, "seed_walker")
         pos = torch.as_tensor(self.sample(walker.n_walkers, seed=seed),
                               dtype=walker.dtype, device=walker.device)
         walker.state = dataclasses.replace(walker.state, position=pos)

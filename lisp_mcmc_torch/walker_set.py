@@ -3,9 +3,8 @@
 Port of ``lisp_mcmc_tpu/walker_set.py``.  The reference's only "many
 chains" notion is a plain list of walkers advanced one after another
 (``walker-set-get`` mcmc-fitting.lisp:1029, ``dir->nv-walkers``
-nv-specific.lisp:58-66); this container keeps its verbs.  Stacking
-same-shaped datasets into one ensemble (``batched.py``) is not ported
-yet, nor is ``plot_param`` (it waits for ``plotting.py``).
+nv-specific.lisp:58-66); this container keeps its verbs.  Same-shaped
+datasets stacked into one ensemble are ``batched.BatchedFit``.
 """
 
 from __future__ import annotations
@@ -37,6 +36,13 @@ class WalkerSet(list):
     def median_params(self, take: int | None = None):
         """``walker-set-get-median-params`` (mcmc-fitting_230522.lisp:797)."""
         return [w.median_params(take) for w in self]
+
+    def plot_param(self, key: str, filename: str | None = None):
+        """Scatter one fitted parameter across the set
+        (``walker-set-plot-param``, mcmc-fitting.lisp:1035-1036)."""
+        from .plotting import plot_set_param
+
+        return plot_set_param(self, key, filename=filename)
 
     def delete(self):
         """``walker-set-delete`` (1032-1033)."""

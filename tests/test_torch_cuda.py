@@ -40,7 +40,10 @@ neither kernel, and kernel 1 at ``compare_pooling``'s pooled 8-term shape
 card (float64) against the closed-form new-group predictive of a
 conjugate hierarchy (JAX tests/test_hierarchical.py:488-519, its
 tolerances); a checkpoint of a flagship walker saved on the card mid-run
-resuming bit for bit on kernel 1 and on the chunk kernel.
+resuming bit for bit on kernel 1 and on the chunk kernel; the plots'
+envelope (``plotting._fit_envelope``, one batched model evaluation on the
+card) against its float64 CPU evaluation; a one-rank NCCL group's sharded
+rwm chunk bit for bit equal to the unsharded one.
 """
 
 import dataclasses
@@ -951,3 +954,61 @@ def test_checkpoint_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
     for k in ("position", "logprob", "best_position", "best_logprob", "l_matrix"):
         assert torch.equal(getattr(r.state, k), getattr(w.state, k)), k
     np.testing.assert_array_equal(r._history()[0], w._history()[0])
+
+
+def test_fit_envelope_on_the_card_matches_float64(cuda):
+    """``plotting._fit_envelope`` on the card (one batched (keep, grid)
+    evaluation of the float32 model) against the same top samples
+    evaluated in float64 on the CPU, within chip_smoke.PLOT_ENVELOPE_TOL of
+    max |y| (its CPU rehearsal: 1.08e-4, the float32 model's rounding)."""
+    import sys
+
+    from lisp_mcmc_torch import plotting
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    w = _walker(cuda, 4096, torch.float32, 0.05)
+    w.adaptive_steps(2000, temperature=10.0, auto=None)
+    got = plotting._fit_envelope(w, 0, 1000, 1000, 0.66)
+    ref = chip_smoke.envelope_reference(w, 0, 1000, 1000, 0.66)
+    scale = max(float(np.abs(r).max()) for r in ref[1:])
+    err = max(float(np.abs(np.asarray(g, np.float64) - r).max())
+              for g, r in zip(got[1:], ref[1:])) / scale
+    assert err <= chip_smoke.PLOT_ENVELOPE_TOL
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6)
+
+
+def test_world_of_one_nccl_rwm_chunk_is_bit_for_bit(cuda):
+    """A one-rank NCCL group runs the sharded rwm chunk's collective on the
+    card and changes nothing: the chunk equals the unsharded one bit for
+    bit, with one all-reduce."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lisp_mcmc_torch.kernel import build_chunk_runner
+    from lisp_mcmc_torch.parallel import initialize_distributed, make_mesh, shard_state
+
+    if not dist.is_initialized():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                               backend="nccl", device=cuda, timeout=120)
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        pytest.skip("another process group is initialized in this process")
+    mesh = make_mesh()
+    w = _walker(cuda, 4096, torch.float32, 0.05)
+    post = w._batched_posterior()
+    run, _ = build_chunk_runner(post, w.ndim, w.config)
+    run_m, _ = build_chunk_runner(post, w.ndim, w.config, mesh=mesh)
+    s1, o1 = run(w.state, True, True, False,
+                 generator=torch.Generator(device=cuda).manual_seed(5))
+    s2, o2 = run_m(shard_state(w.state, mesh), True, True, False,
+                   generator=torch.Generator(device=cuda).manual_seed(5))
+    for k in ("position", "logprob", "best_position", "best_logprob", "l_matrix",
+              "m_sum", "m_outer", "m_count"):
+        assert torch.equal(getattr(s1, k), getattr(s2, k)), k
+    assert torch.equal(o1["accept_rate"], o2["accept_rate"]) and o2["collectives"] == 1
