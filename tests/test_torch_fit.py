@@ -157,7 +157,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*(ROOT / "lisp_mcmc_torch").rglob("*.py"), ROOT / "chip_smoke.py"]),
+    [*(ROOT / "lisp_mcmc_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples_torch").glob("*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     bad = [m for m in _imported_modules(path)
